@@ -1,0 +1,235 @@
+"""Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface under ``_build/`` at first use (the
+file name carries a hash of the sources, so an edited source is rebuilt),
+and ``ctypes`` loads it.  Each wrapper checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on the
+current stream without synchronising, raises if the entry point returns
+a CUDA error, and adds one to its count in ``LAUNCHES``.  A wrapper takes
+CUDA tensors only: the plain versions live beside the callers
+(``ops/ed25519_torch.py``, ``ops/fe25519.py``), which pick one or the
+other by the tensor's device.  Nothing here falls back to them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..crypto import ed25519 as _ref
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+# Launches per kernel since the last reset_launches(); a wrapper adds one
+# where it launches its kernel and nowhere else.
+LAUNCHES = {"ed25519_verify": 0, "fe_ops": 0, "decompress": 0}
+
+# Field multiplies and squarings one row of each kernel performs (fixed:
+# no loop depends on the data), as a host build of csrc/ counts them
+# (TM_COUNT_FIELD_OPS; tests/test_torch_kernel_host.py holds this table to
+# that count).  A multiply is 25 and a squaring 15 products of 51-bit
+# limbs, each at least four 32-bit multiply-adds.
+_PT_ADD = (9, 0)
+_PT_DBL_T = (4, 4)
+_PT_DBL = (3, 4)
+_POW_P58 = (11, 251)
+_DECOMPRESS = (9 + _POW_P58[0], 4 + _POW_P58[1])
+
+
+def _ops(*terms):
+    return (sum(c * m for c, (m, _) in terms), sum(c * s for c, (_, s) in terms))
+
+
+FIELD_OPS_PER_ROW = {
+    "ed25519_verify": _ops((2, _DECOMPRESS), (63, _PT_ADD),            # [s]B
+                           (14 + 63, _PT_ADD), (3 * 63, _PT_DBL),      # [k](-A)
+                           (63, _PT_DBL_T), (2, _PT_ADD), (3, _PT_DBL)),
+    "fe_ops": _ops((1, (1, 0)), (1, (0, 1)), (1, _POW_P58)),
+    "decompress": _ops((1, _DECOMPRESS)),
+}
+
+
+def imads_per_row(kernel: str) -> int:
+    """32-bit multiply-adds in one row of `kernel`'s limb products."""
+    muls, sqs = FIELD_OPS_PER_ROW[kernel]
+    return 4 * (25 * muls + 15 * sqs)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: nvcc is needed to build the kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources is (or will be) built."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f"libtm_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists.
+    The compiler's register and spill report goes to ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tm_ed25519_verify.argtypes = [p, p, p, p, p, p, p, i, p]
+    lib.tm_fe_ops.argtypes = [p, p, p, p, p, i, p]
+    lib.tm_decompress.argtypes = [p, p, p, i, p]
+    for fn in (lib.tm_ed25519_verify, lib.tm_fe_ops, lib.tm_decompress):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# The fixed-base table in the kernel's layout
+# ---------------------------------------------------------------------------
+
+LIMB51 = (1 << 51) - 1
+
+
+def limbs51(v: int) -> list[int]:
+    """A field element as the kernel's 5 x 51-bit limbs, reduced mod p."""
+    v %= _ref.P
+    return [(v >> (51 * i)) & LIMB51 for i in range(5)]
+
+
+def table_from_points(rows) -> np.ndarray:
+    """[64][16] big-int extended points -> int64 [64, 16, 4, 5], the
+    layout ``ed25519_verify`` reads: window, digit, coordinate (X, Y, Z,
+    T), limb."""
+    out = np.zeros((64, 16, 4, 5), dtype=np.int64)
+    for i, row in enumerate(rows):
+        for j, point in enumerate(row):
+            for c in range(4):
+                out[i, j, c] = limbs51(point[c])
+    return out
+
+
+@functools.cache
+def base_table(device: torch.device) -> torch.Tensor:
+    """[j * 16^i]B in the kernel's layout on `device`, built once."""
+    return torch.as_tensor(table_from_points(_ref.base_point_table()), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (CUDA tensors only)
+# ---------------------------------------------------------------------------
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ed25519_verify(pub, r, s, k, valid, table) -> torch.Tensor:
+    """bool [N] verdicts for packed rows uint8 [N, 32] x 4, valid bool [N]
+    and the fixed-base table int64 [64, 16, 4, 5] (``base_table``)."""
+    n = pub.shape[0]
+    dev = pub.device
+    for name, t in (("pub", pub), ("r", r), ("s", s), ("k", k)):
+        _check(t, name, torch.uint8, (n, 32), dev)
+    _check(valid, "valid", torch.bool, (n,), dev)
+    _check(table, "table", torch.int64, (64, 16, 4, 5), dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            err = library().tm_ed25519_verify(pub.data_ptr(), r.data_ptr(), s.data_ptr(),
+                                              k.data_ptr(), valid.data_ptr(), table.data_ptr(),
+                                              out.data_ptr(), n, _stream(dev))
+        _raise_on(err, "ed25519_verify")
+        LAUNCHES["ed25519_verify"] += 1
+    return out
+
+
+def fe_ops(a, b):
+    """From 255-bit encodings a, b (uint8 [N, 32]): canonical a*b, a^2 and
+    a^((p-5)/8), each uint8 [N, 32]."""
+    n = a.shape[0]
+    dev = a.device
+    _check(a, "a", torch.uint8, (n, 32), dev)
+    _check(b, "b", torch.uint8, (n, 32), dev)
+    outs = [torch.empty((n, 32), dtype=torch.uint8, device=dev) for _ in range(3)]
+    if n:
+        with torch.cuda.device(dev):
+            err = library().tm_fe_ops(a.data_ptr(), b.data_ptr(),
+                                      *(o.data_ptr() for o in outs), n, _stream(dev))
+        _raise_on(err, "fe_ops")
+        LAUNCHES["fe_ops"] += 1
+    return tuple(outs)
+
+
+def decompress(enc):
+    """From encodings uint8 [N, 32]: canonical (x, y) uint8 [N, 2, 32] and
+    the on-curve flag bool [N]."""
+    n = enc.shape[0]
+    dev = enc.device
+    _check(enc, "enc", torch.uint8, (n, 32), dev)
+    xy = torch.empty((n, 2, 32), dtype=torch.uint8, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            err = library().tm_decompress(enc.data_ptr(), xy.data_ptr(), ok.data_ptr(), n,
+                                          _stream(dev))
+        _raise_on(err, "decompress")
+        LAUNCHES["decompress"] += 1
+    return xy, ok

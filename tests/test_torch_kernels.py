@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs a CUDA device and skips without one; on the
+card run them with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+Integer arithmetic: every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu_torch import testkit
+from tendermint_tpu_torch.crypto import ed25519 as ref
+from tendermint_tpu_torch.ops import ed25519_torch, fe25519, kernels
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_fe_ops_kernel_matches_plain(cuda):
+    a = torch.from_numpy(testkit.field_rows(seed=1, n_random=512)).to(cuda)
+    b = a.roll(7, dims=0).contiguous()
+    before = kernels.LAUNCHES["fe_ops"]
+    got = fe25519.fe_ops_rows(a, b)
+    want = fe25519.fe_ops(a, b)
+    assert kernels.LAUNCHES["fe_ops"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_decompress_kernel_matches_plain(cuda):
+    enc = torch.from_numpy(testkit.decompress_rows(seed=2, n_random=512)).to(cuda)
+    xy, ok = ed25519_torch.decompress_rows(enc)
+    want_xy, want_ok = ed25519_torch.decompress_rows_plain(enc)
+    assert torch.equal(ok, want_ok) and torch.equal(xy, want_xy)
+    assert ok.any() and not ok.all()
+
+
+def test_verify_kernel_matches_plain_and_reference(cuda):
+    cases = testkit.adversarial_cases(seed=0)
+    pubs, msgs, sigs = ([c[i] for c in cases] for i in range(3))
+    rows = ed25519_torch.rows_to_device(ed25519_torch.prepare_batch(pubs, msgs, sigs), cuda)
+    before = kernels.LAUNCHES["ed25519_verify"]
+    got = ed25519_torch.verify_rows(*rows)
+    assert kernels.LAUNCHES["ed25519_verify"] == before + 1
+    want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    assert got.cpu().tolist() == want
+    assert ed25519_torch.verify_core(*rows).cpu().tolist() == want
+    assert ed25519_torch.verify_batch(pubs, msgs, sigs).tolist() == want
+
+
+def test_verify_kernel_matches_plain_on_a_mixed_batch_across_blocks(cuda):
+    keys = testkit.validator_keys(seed=4, n=200)
+    msgs = [b"vote %d" % i for i in range(200)]
+    pubs, msgs, sigs, want = testkit.mixed_batch(
+        [k.pub_key().bytes_() for k in keys], msgs, [k.sign(m) for k, m in zip(keys, msgs)],
+        seed=5)
+    rows = ed25519_torch.rows_to_device(ed25519_torch.prepare_batch(pubs, msgs, sigs), cuda)
+    got = ed25519_torch.verify_rows(*rows).cpu().tolist()
+    assert got == ed25519_torch.verify_core(*rows).cpu().tolist() == want
+
+
+def test_verify_commit_on_the_card(cuda):
+    keys = testkit.validator_keys(seed=3, n=16)
+    vals = testkit.validator_set(keys)
+    commit = testkit.signed_commit(keys, vals, height=7)
+    before = kernels.LAUNCHES["ed25519_verify"]
+    vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
+    assert kernels.LAUNCHES["ed25519_verify"] == before + 1
+    commit.signatures[5].signature = bytes(64)
+    with pytest.raises(ValueError, match=r"wrong signature \(#5\)"):
+        vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
+
+
+def test_zero_rows_and_empty_batches(cuda):
+    zeros = torch.zeros((3, 32), dtype=torch.uint8, device=cuda)
+    valid = torch.zeros(3, dtype=torch.bool, device=cuda)
+    assert ed25519_torch.verify_rows(zeros, zeros, zeros, zeros, valid).cpu().tolist() == [False] * 3
+    assert ed25519_torch.verify_batch([], [], []).shape == (0,)
+    empty = torch.zeros((0, 32), dtype=torch.uint8, device=cuda)
+    assert ed25519_torch.verify_rows(empty, empty, empty, empty, valid[:0]).shape == (0,)
+    np.testing.assert_array_equal(
+        kernels.base_table(cuda).cpu().numpy(), kernels.table_from_points(ref.base_point_table()))

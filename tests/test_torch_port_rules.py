@@ -1,0 +1,131 @@
+"""Rules the port keeps: it imports neither jax nor the JAX package, its
+entry points never fall back to the CPU, and its kernel wrappers take
+CUDA tensors only."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu_torch import testkit
+from tendermint_tpu_torch.crypto import ed25519 as ref
+from tendermint_tpu_torch.crypto.batch import TorchBatchVerifier, new_batch_verifier
+from tendermint_tpu_torch.ops import ed25519_torch, kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "tendermint_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            if mod.split(".")[0] in FORBIDDEN:
+                bad.append((path.relative_to(ROOT).as_posix(), mod))
+    assert not bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ed25519_torch.verify_batch([pub], [msg], [sig])
+    bv = TorchBatchVerifier()
+    bv.add(pub, msg, sig)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bv.verify()
+    keys = testkit.validator_keys(seed=1, n=4)
+    vals = testkit.validator_set(keys)
+    commit = testkit.signed_commit(keys, vals, height=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(3), 3, commit)
+    # the plain version runs only when asked for
+    vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(3), 3, commit, device="cpu")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    rows = torch.zeros((4, 32), dtype=torch.uint8)
+    valid = torch.ones(4, dtype=torch.bool)
+    table = torch.zeros((64, 16, 4, 5), dtype=torch.int64)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.ed25519_verify(rows, rows, rows, rows, valid, table)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.fe_ops(rows, rows)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.decompress(rows)
+    assert kernels.LAUNCHES == before
+
+
+def test_secp256k1_rows_are_not_silently_rejected():
+    pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
+    for backend in ("torch", "cpu"):
+        bv = new_batch_verifier(backend, device="cpu")
+        bv.add(pub, msg, sig)
+        bv.add(b"\x02" + bytes(32), msg, sig)
+        with pytest.raises(NotImplementedError):
+            bv.verify()
+
+
+def test_rows_with_bad_lengths_or_s_stay_in_the_batch_as_zero_rows():
+    pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
+    big_s = sig[:32] + ref.L.to_bytes(32, "little")
+    pub_rows, r_rows, s_rows, k_rows, valid = ed25519_torch.prepare_batch(
+        [pub, pub[:31], pub], [msg] * 3, [sig, sig, big_s])
+    assert valid.tolist() == [True, False, False]
+    assert not pub_rows[1].any() and not r_rows[1].any() and not k_rows[1].any()
+    assert not k_rows[2].any()  # k is only hashed for rows that stay valid
+    got = ed25519_torch.verify_rows(*ed25519_torch.rows_to_device(
+        (pub_rows, r_rows, s_rows, k_rows, valid), torch.device("cpu")))
+    assert got.tolist() == [True, False, False]
+
+
+def test_kernel_build_targets_sm90a_in_the_ignored_build_dir():
+    assert kernels.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
+    path = kernels.library_path()
+    assert path.parent == ROOT / "tendermint_tpu_torch" / "_build"
+    assert "tendermint_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    """Without a card the smoke script exits non-zero and prints no
+    result line."""
+    script = (ROOT / "chip_smoke.py").read_text()
+    probe = tmp_path / "probe.py"
+    probe.write_text("import torch\ntorch.cuda.is_available = lambda: False\n"
+                     f"import runpy, sys\nsys.path.insert(0, {str(ROOT)!r})\n"
+                     f"sys.argv = ['chip_smoke.py']\nrunpy.run_path({str(ROOT / 'chip_smoke.py')!r},"
+                     " run_name='__main__')\n")
+    assert "torch.cuda.is_available()" in script
+    proc = subprocess.run([sys.executable, str(probe)], capture_output=True, text=True,
+                          timeout=120, cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_field_rows_and_decompress_rows_are_seeded():
+    assert np.array_equal(testkit.field_rows(4, 8), testkit.field_rows(4, 8))
+    assert np.array_equal(testkit.decompress_rows(4, 8), testkit.decompress_rows(4, 8))
