@@ -5,10 +5,14 @@ Builds the hand-written kernels of ``tendermint_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card, then
 drives the port's commit-verification entry points at real validator-set
 sizes: a 128-validator commit, a 10,000-validator commit (MaxVotesCount)
-and a blocksync window of 50 commits x 200 validators.  Keys and
-signatures are made from seeds.  Every phase prints one JSON line; any
-mismatch or exception exits non-zero.  The last two lines are the
-kernels' table and ``{"ok": true, "device": {...}}``.
+and a blocksync window of 50 commits x 200 validators, first on the
+per-row path (``ed25519_verify``), then with ``TM_CUDA_RLC=1`` on the RLC
+batch-equation path (``ed25519_rlc`` + ``rlc_fold``, and the per-row
+kernel as the exact fallback for a commit with a bad signature).  Keys,
+signatures and the RLC part check's z are made from seeds.  Every phase
+prints one JSON line; any mismatch or exception exits non-zero.  The last
+three lines are the card's name and power limit, the kernels' table and
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py        # needs one CUDA device; no arguments
 
@@ -18,6 +22,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -100,9 +105,12 @@ def main() -> int:
         return timed_host(fn, runs)[1]
 
     def bound_ms(kernel: str, n: int, nbytes: int) -> tuple[float, str]:
-        ops_ms = n * kernels.imads_per_row(kernel) / imad_per_s * 1e3
+        ops_ms = kernels.imads(kernel, n) / imad_per_s * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    # the per-row path first, whatever the caller's environment says
+    os.environ["TM_CUDA_RLC"] = "0"
 
     # -- 1. device and build ------------------------------------------------
     built_now = not kernels.library_path().exists()
@@ -213,6 +221,7 @@ def main() -> int:
     table = kernels.base_table(dev)
     verify_ms = timed_kernel_ms(lambda: kernels.ed25519_verify(*rows_10k, table))
     check(bool(kernels.ed25519_verify(*rows_10k, table).all()), "10k rows not all valid")
+    commit_10k = (vals, commit, bid)
     emit("commit-10k", validators=10_000, card=card, setup_s=setup_s,
          e2e_p50_ms=e2e, sign_bytes_p50_ms=sign_bytes_ms, host_prep_p50_ms=prep_ms,
          kernel_p50_ms=verify_ms,
@@ -285,15 +294,176 @@ def main() -> int:
          mixed_rejected=mwant.count(False),
          kernels={f"{name}@{n}": t for (name, n), t in timing.items()})
 
+    # -- 9. ed25519_rlc and rlc_fold against their plain version -----------
+    # The RLC equation's inputs with z from the seed, on the mixed rows
+    # (both verdicts in every 8 rows: the equation fails) and on the honest
+    # commit-10k rows (it holds).  The kernels' lanes (one per 64 rows,
+    # folded to <= 128) and the plain version's (the JAX program's
+    # partition) must sum to the same point, with the same prevalid and
+    # the same decision; the error is the count of such disagreements.
+    # rlc_fold gets the lanes ed25519_rlc wrote and must give the plain
+    # fold's lanes, byte for byte in canonical coordinates.
+    prepared = {"mixed": ed25519_torch.prepare_batch(mpubs, mmsgs, msigs),
+                "honest": ed25519_torch.prepare_batch(*triples)}
+    rlc_inputs = {}
+    for n in (128, 10_000):
+        for label, rows_np in prepared.items():
+            rows, c_row = testkit.rlc_rows(tuple(a[:n] for a in rows_np), seed=SEED + 6)
+            rlc_inputs[(label, n)] = (ed25519_torch.rows_to_device(rows, dev), c_row)
+
+    def lane_sum(lanes) -> tuple:
+        coords = [c.cpu().numpy() for c in lanes.astuple()]
+        total = ref.IDENTITY
+        for i in range(coords[0].shape[0]):
+            total = ref.pt_add(total, tuple(fe25519.int_from_limbs(c[i]) % ref.P for c in coords))
+        return total
+
+    rlc_err = fold_err = 0
+    for (label, n), (cut, c_row) in rlc_inputs.items():
+        raw, prevalid = kernels.ed25519_rlc(*cut)
+        check(raw.shape[0] == kernels.rlc_lanes(n), f"ed25519_rlc lanes at N = {n}")
+        folded = kernels.rlc_fold(raw) if raw.shape[0] > kernels.RLC_MAX_LANES else raw
+        got = ed25519_torch.lanes_to_pt(folded)
+        want, want_prevalid = ed25519_torch.verify_core_rlc(*cut)
+        decision = ed25519_torch.finalize_rlc(got, c_row)
+        err = (int((prevalid != want_prevalid).sum())
+               + int(not ref.pt_equal(lane_sum(got), lane_sum(want)))
+               + int(decision != ed25519_torch.finalize_rlc(want, c_row)))
+        check(err == 0, f"ed25519_rlc differs from its plain version ({label}, N = {n})")
+        check(decision == (label == "honest"), f"RLC decision on {label} rows at N = {n}")
+        rlc_err = max(rlc_err, err)
+        if folded is not raw:
+            plain_fold = ed25519_torch._pt_reduce_to_lanes(ed25519_torch.lanes_to_pt(raw),
+                                                           kernels.RLC_MAX_LANES)
+            err = int((ed25519_torch.pt_rows(got).int()
+                       - ed25519_torch.pt_rows(plain_fold).int()).abs().max())
+            check(err == 0, f"rlc_fold differs from its plain version ({label}, N = {n})")
+            fold_err = max(fold_err, err)
+    errs.update(ed25519_rlc=rlc_err, rlc_fold=fold_err)
+
+    lane_bytes = 4 * 5 * 8
+    for n in (128, 10_000):
+        rows = rlc_inputs[("mixed", n)][0]
+        raw = kernels.ed25519_rlc(*rows)[0]
+        p = raw.shape[0]
+        parts = {
+            "ed25519_rlc": (lambda rows=rows: kernels.ed25519_rlc(*rows),
+                            lambda rows=rows: ed25519_torch.verify_core_rlc(*rows),
+                            "ed25519_rlc", n, n * (3 * 32 + 16 + 1) + p * lane_bytes),
+            # at 128 rows (2 lanes) the main path does not fold; the time
+            # is that of the copy a fold of 2 lanes is
+            "rlc_fold": (lambda raw=raw: kernels.rlc_fold(raw),
+                         lambda raw=raw: ed25519_torch._pt_reduce_to_lanes(
+                             ed25519_torch.lanes_to_pt(raw), kernels.RLC_MAX_LANES),
+                         "rlc_fold", p,
+                         (p + kernels.reduced_width(p, kernels.RLC_MAX_LANES)) * lane_bytes),
+        }
+        for name, (kernel_fn, plain_fn, kernel, count, nbytes) in parts.items():
+            _, plain_ms = timed_host(plain_fn, 3)
+            bound, bound_by = bound_ms(kernel, count, nbytes)
+            timing[(name, n)] = {"ms": timed_kernel_ms(kernel_fn), "plain_ms": plain_ms,
+                                 "bound_ms": bound, "bound_by": bound_by,
+                                 "max_abs_err": errs[name], "lanes": p}
+    scalars_ms = timed_host_ms(
+        lambda: ed25519_torch.prepare_rlc_scalars(*prepared["honest"][2:]), TIMED_RUNS)
+    honest_rows, honest_c = rlc_inputs[("honest", 10_000)]
+    honest_lanes = ed25519_torch.verify_rows_rlc(*honest_rows)[0]
+    finalize_ms = timed_host_ms(lambda: ed25519_torch.finalize_rlc(honest_lanes, honest_c),
+                                TIMED_RUNS)
+    emit("rlc-parts", card=card, max_abs_err=rlc_err, fold_max_abs_err=fold_err,
+         mixed_rejected=mwant.count(False), rlc_scalars_p50_ms=scalars_ms,
+         finalize_p50_ms=finalize_ms, finalize_lanes=honest_lanes.x.shape[0],
+         kernels={f"{name}@{n}": timing[(name, n)]
+                  for name in ("ed25519_rlc", "rlc_fold") for n in (128, 10_000)})
+
+    # -- 10. the RLC path through the entry points (TM_CUDA_RLC=1) ---------
+    def rlc_main_path(fn, signatures: int, fallback: bool = False):
+        """One entry-point call on the RLC path: one ed25519_rlc launch, one
+        rlc_fold above 128 lanes, and ed25519_verify only as the fallback."""
+        kernels.reset_launches()
+        before = dict(ed25519_torch.RLC_STATS)
+        try:
+            fn()
+        finally:
+            counts = dict(kernels.LAUNCHES)
+            for name, c in counts.items():
+                main_launches[name] += c
+            want = {"ed25519_rlc": 1, "ed25519_verify": int(fallback),
+                    "rlc_fold": int(kernels.rlc_lanes(signatures) > kernels.RLC_MAX_LANES)}
+            check(all(counts[k] == v for k, v in want.items()),
+                  f"RLC path: expected {want}, counted {counts}")
+            moved = "fallback" if fallback else "pass"
+            check(ed25519_torch.RLC_STATS[moved] == before[moved] + 1
+                  and sum(ed25519_torch.RLC_STATS.values()) == sum(before.values()) + 1,
+                  f"RLC_STATS {before} -> {ed25519_torch.RLC_STATS}")
+
+    vals, commit, bid = commit_10k
+    light_signatures = vals.total_voting_power() * 2 // 3 // 10 + 1  # power 10 each, to +2/3
+    # per-row and RLC calls in turns (per-row, RLC, RLC, per-row, ...), so
+    # both paths meet the host in the same state; p50 of TIMED_RUNS each
+    calls = (("verify_commit", lambda: vals.verify_commit(testkit.CHAIN_ID, bid, 2, commit),
+              10_000),
+             ("verify_commit_light",
+              lambda: vals.verify_commit_light(testkit.CHAIN_ID, bid, 2, commit),
+              light_signatures),
+             ("blocksync-window", lambda: batch_verify_commits(jobs), 10_000))
+    per_row_e2e, rlc_e2e = {}, {}
+    for name, call, signatures in calls:
+        times = {"0": [], "1": []}
+        for i in range(TIMED_RUNS):
+            for setting in ("0", "1") if i % 2 == 0 else ("1", "0"):
+                os.environ["TM_CUDA_RLC"] = setting
+                t0 = time.perf_counter()
+                if setting == "1":
+                    rlc_main_path(call, signatures)
+                else:
+                    main_path(call)
+                times[setting].append((time.perf_counter() - t0) * 1e3)
+        per_row_e2e[name], rlc_e2e[name] = p50(times["0"]), p50(times["1"])
+    bad = 4321
+    good_sig = commit.signatures[bad].signature
+    commit.signatures[bad].signature = bytes([good_sig[0] ^ 1]) + good_sig[1:]
+    rejected = {}
+    for setting in ("0", "1"):
+        os.environ["TM_CUDA_RLC"] = setting
+        try:
+            if setting == "1":
+                t0 = time.perf_counter()
+                rlc_main_path(lambda: vals.verify_commit(testkit.CHAIN_ID, bid, 2, commit),
+                              10_000, fallback=True)
+            else:
+                main_path(lambda: vals.verify_commit(testkit.CHAIN_ID, bid, 2, commit))
+            rejected[setting] = ""
+        except ValueError as e:
+            rejected[setting] = str(e)
+            if setting == "1":
+                rlc_e2e["verify_commit_fallback"] = (time.perf_counter() - t0) * 1e3
+    check(f"wrong signature (#{bad})" in rejected["1"] and rejected["0"] == rejected["1"],
+          f"corrupted commit-10k with and without RLC: {rejected}")
+    os.environ["TM_CUDA_RLC"] = "0"
+    emit("rlc-main-path", card=card, validators=10_000, light_signatures=light_signatures,
+         rlc_e2e_p50_ms=rlc_e2e, per_row_e2e_p50_ms=per_row_e2e,
+         rlc_kernel_p50_ms={"ed25519_rlc": timing[("ed25519_rlc", 10_000)]["ms"],
+                            "rlc_fold": timing[("rlc_fold", 10_000)]["ms"]},
+         per_row_kernel_p50_ms=verify_ms, corrupted_index=bad, rejected=rejected["1"],
+         rlc_stats=dict(ed25519_torch.RLC_STATS), runs=TIMED_RUNS)
+    check(all(main_launches[k] > 0 for k in ("ed25519_verify", "ed25519_rlc", "rlc_fold")),
+          f"the main path left a kernel unlaunched: {main_launches}")
+
     # -- the kernels' table and the result ----------------------------------
-    source = "tendermint_tpu_torch/csrc/ed25519_verify.cu"
+    sources = {"ed25519_rlc": "tendermint_tpu_torch/csrc/ed25519_rlc.cu",
+               "rlc_fold": "tendermint_tpu_torch/csrc/ed25519_rlc.cu"}
     replaces = {"ed25519_verify": "tendermint_tpu/ops/ed25519_jax.py:529",
                 "fe_ops": "tendermint_tpu/ops/fe25519.py:108",
-                "decompress": "tendermint_tpu/ops/ed25519_jax.py:217"}
-    table_line = [{"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-                   "launches": main_launches[name],
-                   **timing[(name, 10_000)], "max_abs_err": errs[name], "library_ms": None}
-                  for name in ("ed25519_verify", "fe_ops", "decompress")]
+                "decompress": "tendermint_tpu/ops/ed25519_jax.py:217",
+                "ed25519_rlc": "tendermint_tpu/ops/ed25519_jax.py:422",
+                "rlc_fold": "tendermint_tpu/ops/ed25519_jax.py:390"}
+    table_line = [{"name": name, "route": "cuda",
+                   "source": sources.get(name, "tendermint_tpu_torch/csrc/ed25519_verify.cu"),
+                   "replaces": replaces[name], "launches": main_launches[name],
+                   **{k: v for k, v in timing[(name, 10_000)].items() if k != "lanes"},
+                   "max_abs_err": errs[name], "library_ms": None}
+                  for name in replaces]
     print(card, flush=True)
     print(json.dumps({"kernels": table_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,8 @@ collects its signatures here and verifies them in one call.
 Counterpart of ``tendermint_tpu/crypto/batch.py``.  Backends:
   * "torch" — ``TorchBatchVerifier``: the whole batch in one launch of the
               ``ed25519_verify`` CUDA kernel (``ops/ed25519_torch``), or
-              its plain PyTorch version for ``device="cpu"``.
+              its plain PyTorch version for ``device="cpu"``; with
+              ``TM_CUDA_RLC=1``, through the RLC batch equation instead.
   * "cpu"   — ``CPUBatchVerifier``: the pure ZIP-215 reference, one
               signature at a time.
 A batch holding a 33-byte secp256k1 key raises ``NotImplementedError``:
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
 
+from .. import knobs
 from ..ops import ed25519_torch
 from . import ed25519 as _ed
 
@@ -87,15 +89,23 @@ class CPUBatchVerifier(_BaseBatch):
 class TorchBatchVerifier(_BaseBatch):
     """One ``ed25519_verify`` kernel launch verifies the entire batch.
 
+    ``TM_CUDA_RLC=1``, read at every call, routes the batch through the
+    RLC batch equation (``ed25519_torch.verify_batch_rlc``: one
+    ``ed25519_rlc`` launch, and the per-row kernel only if the equation
+    fails), the counterpart of ``TM_TPU_RLC``.  The verdicts are the same
+    either way.
+
     ``device`` None means ``cuda``; with no CUDA device that raises
-    rather than running on the CPU.  ``device="cpu"`` runs the kernel's
-    plain PyTorch version."""
+    rather than running on the CPU.  ``device="cpu"`` runs the kernels'
+    plain PyTorch versions."""
 
     def __init__(self, device=None) -> None:
         super().__init__()
         self.device = device
 
     def _ed_batch(self, pubs, msgs, sigs) -> list[bool]:
+        if knobs.read("TM_CUDA_RLC") == "1":
+            return list(ed25519_torch.verify_batch_rlc(pubs, msgs, sigs, device=self.device))
         return list(ed25519_torch.verify_batch(pubs, msgs, sigs, device=self.device))
 
 

@@ -1,15 +1,22 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface under ``_build/`` at first use (the
-file name carries a hash of the sources, so an edited source is rebuilt),
-and ``ctypes`` loads it.  Each wrapper checks device, dtype, shape and
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links them into one shared library
+with a plain C interface under ``_build/`` at first use (the file name
+carries a hash of the sources and of the headers they include, so an
+edited ``.cu`` or ``.cuh`` is rebuilt), and ``ctypes`` loads it.  Each
+wrapper checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on the
 current stream without synchronising, raises if the entry point returns
 a CUDA error, and adds one to its count in ``LAUNCHES``.  A wrapper takes
 CUDA tensors only: the plain versions live beside the callers
 (``ops/ed25519_torch.py``, ``ops/fe25519.py``), which pick one or the
 other by the tensor's device.  Nothing here falls back to them.
+
+Kernels: ``ed25519_verify``, ``fe_ops`` and ``decompress``
+(``csrc/ed25519_verify.cu``); ``ed25519_rlc`` and ``rlc_fold``
+(``csrc/ed25519_rlc.cu``).  Both sources include the field and point
+functions of ``csrc/ed25519_common.cuh``.
 """
 
 from __future__ import annotations
@@ -32,13 +39,19 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Launches per kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"ed25519_verify": 0, "fe_ops": 0, "decompress": 0}
+LAUNCHES = {"ed25519_verify": 0, "fe_ops": 0, "decompress": 0, "ed25519_rlc": 0,
+            "rlc_fold": 0}
+
+RLC_THREADS = 64  # rows per block of ed25519_rlc; each block writes one lane
+RLC_MAX_LANES = 128  # rlc_fold folds the lanes to this many or fewer
 
 # Field multiplies and squarings one row of each kernel performs (fixed:
 # no loop depends on the data), as a host build of csrc/ counts them
-# (TM_COUNT_FIELD_OPS; tests/test_torch_kernel_host.py holds this table to
-# that count).  A multiply is 25 and a squaring 15 products of 51-bit
-# limbs, each at least four 32-bit multiply-adds.
+# (TM_COUNT_FIELD_OPS; tests/test_torch_kernel_host.py holds these tables
+# to that count).  ed25519_rlc adds a per-block term for the tree and the
+# block's Horner chain; a "row" of rlc_fold is a lane it folds away.  A
+# multiply is 25 and a squaring 15 products of 51-bit limbs, each at least
+# four 32-bit multiply-adds.
 _PT_ADD = (9, 0)
 _PT_DBL_T = (4, 4)
 _PT_DBL = (3, 4)
@@ -56,12 +69,44 @@ FIELD_OPS_PER_ROW = {
                            (63, _PT_DBL_T), (2, _PT_ADD), (3, _PT_DBL)),
     "fe_ops": _ops((1, (1, 0)), (1, (0, 1)), (1, _POW_P58)),
     "decompress": _ops((1, _DECOMPRESS)),
+    "ed25519_rlc": _ops((2, _DECOMPRESS), (2 * 14, _PT_ADD),          # tables of -A, -R
+                        (32, _PT_ADD)),                               # + [z_w](-R), w < 32
+    "rlc_fold": _ops((1, _PT_ADD)),
+}
+FIELD_OPS_PER_BLOCK = {  # 64 windows of: a tree over the block's rows, then Horner
+    "ed25519_rlc": _ops((64 * (RLC_THREADS - 1), _PT_ADD),
+                        (64 * 3, _PT_DBL), (64, _PT_DBL_T), (64, _PT_ADD)),
 }
 
 
-def imads_per_row(kernel: str) -> int:
-    """32-bit multiply-adds in one row of `kernel`'s limb products."""
+def reduced_width(n: int, target: int) -> int:
+    """The width a pairwise fold of n lanes stops at: n halves, rounding
+    up, until it is at most `target` (``_reduced_width`` of the JAX
+    package)."""
+    while n > target:
+        n = n // 2 + n % 2
+    return n
+
+
+def rlc_lanes(n: int) -> int:
+    """Lanes ``ed25519_rlc`` writes for n rows: one per block."""
+    return -(-n // RLC_THREADS)
+
+
+def field_ops(kernel: str, n: int) -> tuple[int, int]:
+    """(multiplies, squarings) of one launch of `kernel` on n rows (for
+    ``rlc_fold``, n lanes)."""
+    rows = n - reduced_width(n, RLC_MAX_LANES) if kernel == "rlc_fold" else n
     muls, sqs = FIELD_OPS_PER_ROW[kernel]
+    block_muls, block_sqs = FIELD_OPS_PER_BLOCK.get(kernel, (0, 0))
+    blocks = rlc_lanes(n) if kernel in FIELD_OPS_PER_BLOCK else 0
+    return rows * muls + blocks * block_muls, rows * sqs + blocks * block_sqs
+
+
+def imads(kernel: str, n: int) -> int:
+    """32-bit multiply-adds in the limb products of one launch of `kernel`
+    on n rows."""
+    muls, sqs = field_ops(kernel, n)
     return 4 * (25 * muls + 15 * sqs)
 
 
@@ -75,7 +120,14 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def _sources() -> list[Path]:
+    """What nvcc compiles: one object per ``.cu``."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_sources() -> list[Path]:
+    """What the library's name hashes: the ``.cu`` files and the headers
+    they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -89,7 +141,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources is (or will be) built."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed_sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
@@ -97,19 +149,36 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    The compiler's register and spill report goes to ``<library>.log``."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all at once, then one link.  The compilers' register
+    and spill reports go to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    stem = out.with_suffix(f".{os.getpid()}")
+    nvcc = _nvcc()
+    objs = [Path(f"{stem}.{src.stem}.o") for src in _sources()]
+    compiles = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+                                  "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(_sources(), objs)]
+    logs = [proc.communicate()[0] for proc in compiles]
+    failed = [(src.name, proc.returncode, log) for src, proc, log in
+              zip(_sources(), compiles, logs) if proc.returncode != 0]
+    if not failed:
+        tmp = Path(f"{stem}.tmp")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode, link.stdout + link.stderr))
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        name, code, log = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({code}):\n{log[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -121,7 +190,10 @@ def library() -> ctypes.CDLL:
     lib.tm_ed25519_verify.argtypes = [p, p, p, p, p, p, p, i, p]
     lib.tm_fe_ops.argtypes = [p, p, p, p, p, i, p]
     lib.tm_decompress.argtypes = [p, p, p, i, p]
-    for fn in (lib.tm_ed25519_verify, lib.tm_fe_ops, lib.tm_decompress):
+    lib.tm_ed25519_rlc.argtypes = [p, p, p, p, p, p, p, i, p]
+    lib.tm_rlc_fold.argtypes = [p, p, i, p]
+    for fn in (lib.tm_ed25519_verify, lib.tm_fe_ops, lib.tm_decompress, lib.tm_ed25519_rlc,
+               lib.tm_rlc_fold):
         fn.restype = ctypes.c_int
     return lib
 
@@ -233,3 +305,41 @@ def decompress(enc):
         _raise_on(err, "decompress")
         LAUNCHES["decompress"] += 1
     return xy, ok
+
+
+def ed25519_rlc(pub, r, zk, z, valid):
+    """The RLC batch equation's partial sums for packed rows pub, r, zk
+    (uint8 [N, 32]), z (uint8 [N, 16]) and valid (bool [N]): the lanes,
+    int64 [ceil(N / 64), 4, 5] (one per block of 64 rows: X, Y, Z, T in
+    the kernel's 51-bit limbs), and prevalid, bool [N]."""
+    n = pub.shape[0]
+    dev = pub.device
+    for name, t in (("pub", pub), ("r", r), ("zk", zk)):
+        _check(t, name, torch.uint8, (n, 32), dev)
+    _check(z, "z", torch.uint8, (n, 16), dev)
+    _check(valid, "valid", torch.bool, (n,), dev)
+    lanes = torch.empty((rlc_lanes(n), 4, 5), dtype=torch.int64, device=dev)
+    prevalid = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            err = library().tm_ed25519_rlc(pub.data_ptr(), r.data_ptr(), zk.data_ptr(),
+                                           z.data_ptr(), valid.data_ptr(), lanes.data_ptr(),
+                                           prevalid.data_ptr(), n, _stream(dev))
+        _raise_on(err, "ed25519_rlc")
+        LAUNCHES["ed25519_rlc"] += 1
+    return lanes, prevalid
+
+
+def rlc_fold(lanes):
+    """Lanes int64 [P, 4, 5] folded pairwise to
+    [reduced_width(P, 128), 4, 5], with the same sum."""
+    p = lanes.shape[0]
+    dev = lanes.device
+    _check(lanes, "lanes", torch.int64, (p, 4, 5), dev)
+    work = torch.empty_like(lanes)
+    if p:
+        with torch.cuda.device(dev):
+            err = library().tm_rlc_fold(lanes.data_ptr(), work.data_ptr(), p, _stream(dev))
+        _raise_on(err, "rlc_fold")
+        LAUNCHES["rlc_fold"] += 1
+    return work[:reduced_width(p, RLC_MAX_LANES)]

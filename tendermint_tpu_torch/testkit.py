@@ -12,6 +12,7 @@ import numpy as np
 
 from .crypto import ed25519 as ref
 from .crypto.keys import PrivKey
+from .ops import ed25519_torch
 from .types.basic import BlockID, BlockIDFlag, PartSetHeader
 from .types.commit import Commit, CommitSig
 from .types.validator import Validator, ValidatorSet
@@ -141,6 +142,24 @@ def decompress_rows(seed: int, n_random: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     rand = rng.integers(0, 256, size=(n_random, 32), dtype=np.uint8)
     return np.concatenate([rows, rand])
+
+
+# ---------------------------------------------------------------------------
+# RLC inputs
+# ---------------------------------------------------------------------------
+
+def rlc_rows(prepared, seed: int):
+    """From ``prepare_batch``'s rows (pub, r, s, k, valid), the RLC
+    equation's inputs with z made from a seed (the port's own
+    ``prepare_rlc_scalars`` draws z from ``os.urandom``) under the same
+    rules: a z of zero becomes 1, rows with valid False get z = 0.
+    Returns ((pub, r, zk, z, valid), numpy, and c_row, uint8 [32])."""
+    pub_rows, r_rows, s_rows, k_rows, valid = prepared
+    z_rows = np.random.default_rng(seed).integers(0, 256, size=(len(valid), 16), dtype=np.uint8)
+    z_rows[~z_rows.any(axis=1), 0] = 1
+    z_rows[~valid] = 0
+    zk_rows, c_row = ed25519_torch.rlc_scalars(z_rows, s_rows, k_rows)
+    return (pub_rows, r_rows, zk_rows, z_rows, valid), c_row
 
 
 # ---------------------------------------------------------------------------

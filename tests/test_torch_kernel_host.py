@@ -1,9 +1,11 @@
-"""The CUDA source's device functions, built for the CPU by the host C++
-compiler (``csrc/ed25519_verify.cu`` compiles as plain C++), against the
+"""The CUDA sources' device functions, built for the CPU by the host C++
+compiler (``csrc/ed25519_verify.cu`` and ``csrc/ed25519_rlc.cu``, with the
+shared ``csrc/ed25519_common.cuh``, compile as plain C++), against the
 plain PyTorch versions and the pure ZIP-215 reference; and the field
-multiplies and squarings per row that the kernels' bound is computed from
-(``ops/kernels.FIELD_OPS_PER_ROW``), counted in that same code.  Integer
-arithmetic: every comparison is exact."""
+multiplies and squarings per row (and per block) that the kernels' bound
+is computed from (``ops/kernels.FIELD_OPS_PER_ROW``,
+``FIELD_OPS_PER_BLOCK``), counted in that same code.  Integer arithmetic:
+every comparison is exact; points are compared projectively."""
 
 import ctypes
 import shutil
@@ -18,16 +20,40 @@ from tendermint_tpu_torch.crypto import ed25519 as ref
 from tendermint_tpu_torch.ops import ed25519_torch, fe25519, kernels
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The plain versions run on one thread here.  On a few hundred rows
+    their ops pass torch's parallel grain, and a pool of eight threads per
+    test process, on cores that other test processes keep busy, took the
+    200-row plain RLC from 1.5 s to over 100 s."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _host_build(tmp_path_factory, source: str) -> ctypes.CDLL:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    out = tmp_path_factory.mktemp("host") / "libtm_host.so"
+    out = tmp_path_factory.mktemp("host") / f"lib{source}.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
                     "-DTM_COUNT_FIELD_OPS", "-o", str(out),
-                    str(kernels.CSRC / "ed25519_verify.cu")], check=True, timeout=300)
+                    str(kernels.CSRC / f"{source}.cu")], check=True, timeout=300)
     return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _host_build(tmp_path_factory, "ed25519_verify")
+
+
+@pytest.fixture(scope="module")
+def rlc_lib(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, "ed25519_rlc")
+    lib.tm_host_ed25519_rlc.restype = ctypes.c_int
+    lib.tm_host_rlc_fold.restype = ctypes.c_int
+    return lib
 
 
 def _p(a: np.ndarray):
@@ -55,6 +81,42 @@ def _decompress(lib, enc):
     ok = np.zeros(len(enc), dtype=np.uint8)
     lib.tm_host_decompress(_p(enc), _p(xy), _p(ok), ctypes.c_int(len(enc)))
     return xy, ok.astype(bool)
+
+
+def _rlc(lib, rows):
+    """The host build's (lanes uint64 [ceil(N / 64), 4, 5], prevalid)."""
+    pub, r, zk, z, valid = (np.ascontiguousarray(a) for a in rows)
+    n = len(valid)
+    lanes = np.zeros((kernels.rlc_lanes(n), 4, 5), dtype=np.uint64)
+    prevalid = np.zeros(n, dtype=np.uint8)
+    assert lib.tm_host_ed25519_rlc(_p(pub), _p(r), _p(zk), _p(z), _p(valid.astype(np.uint8)),
+                                   _p(lanes), _p(prevalid), ctypes.c_int(n)) == 0
+    return lanes, prevalid.astype(bool)
+
+
+def _fold(lib, lanes):
+    work = np.zeros_like(lanes)
+    width = lib.tm_host_rlc_fold(_p(np.ascontiguousarray(lanes)), _p(work), len(lanes))
+    return work[:width]
+
+
+def _lane_points(lanes) -> list:
+    """Kernel-layout lanes (51-bit limbs) as big-int points."""
+    return [tuple(sum(int(v) << (51 * i) for i, v in enumerate(coord)) % ref.P
+                  for coord in lane) for lane in lanes]
+
+
+def _pt_points(p) -> list:
+    coords = [c.numpy() for c in p.astuple()]
+    return [tuple(fe25519.int_from_limbs(c[i]) % ref.P for c in coords)
+            for i in range(coords[0].shape[0])]
+
+
+def _sum(points):
+    total = ref.IDENTITY
+    for q in points:
+        total = ref.pt_add(total, q)
+    return total
 
 
 def _counts(lib) -> tuple[int, int]:
@@ -85,20 +147,89 @@ def test_fe_ops_and_decompress_rows_match_the_plain_versions(host_lib):
     assert ok.any() and not ok.all()
 
 
+def _random_lanes(seed: int, n: int) -> np.ndarray:
+    """n lanes of random multiples of B in the kernel's layout."""
+    rng = np.random.default_rng(seed)
+    pts = [ref.scalar_mult_base(int(rng.integers(1, 1 << 62))) for _ in range(n)]
+    return np.array([[kernels.limbs51(c) for c in p] for p in pts], dtype=np.uint64)
+
+
 @pytest.mark.parametrize("kernel", sorted(kernels.FIELD_OPS_PER_ROW))
-def test_field_op_counts_per_row_match_the_kernel_source(host_lib, kernel):
+def test_field_op_counts_per_row_match_the_kernel_source(host_lib, rlc_lib, kernel):
     """One row of each kernel, counted; no loop depends on the data, so
-    one row's count is every row's."""
+    one row's count is every row's.  ed25519_rlc is counted on 1 and on
+    65 rows, which fixes both its per-row and its per-block term;
+    rlc_fold on 157 lanes, the commit-10k call's."""
     _counts(host_lib)
+    _counts(rlc_lib)
     if kernel == "ed25519_verify":
         pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
         assert _verify(host_lib, ed25519_torch.prepare_batch([pub], [msg], [sig])).all()
     elif kernel == "fe_ops":
         row = testkit.field_rows(seed=7, n_random=1)[:1]
         _fe_ops(host_lib, row, row)
-    else:
+    elif kernel == "decompress":
         _decompress(host_lib, testkit.decompress_rows(seed=8, n_random=0)[:1])
-    assert _counts(host_lib) == kernels.FIELD_OPS_PER_ROW[kernel]
+    elif kernel == "ed25519_rlc":
+        keys = testkit.validator_keys(seed=11, n=65)
+        msgs = [b"count %d" % i for i in range(65)]
+        prepared = ed25519_torch.prepare_batch(
+            [k.pub_key().bytes_() for k in keys], msgs, [k.sign(m) for k, m in zip(keys, msgs)])
+        rows, _ = testkit.rlc_rows(prepared, seed=12)
+        for n in (1, 65):
+            _rlc(rlc_lib, tuple(a[:n] for a in rows))
+            assert _counts(rlc_lib) == kernels.field_ops(kernel, n), n
+        return
+    else:
+        assert len(_fold(rlc_lib, _random_lanes(13, 157))) == 79
+        assert _counts(rlc_lib) == kernels.field_ops(kernel, 157) == (78 * 9, 0)
+        return
+    assert _counts(host_lib) == kernels.FIELD_OPS_PER_ROW[kernel] == kernels.field_ops(kernel, 1)
+
+
+@pytest.fixture(scope="module")
+def rlc_batch():
+    """200 signed votes as a mixed batch (gauntlet rows, flipped R bits,
+    changed messages in every 8 rows) and as an honest batch."""
+    keys = testkit.validator_keys(seed=14, n=200)
+    msgs = [b"rlc vote %d" % i for i in range(200)]
+    pubs = [k.pub_key().bytes_() for k in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    mixed = testkit.mixed_batch(pubs, msgs, sigs, seed=15)[:3]
+    return ed25519_torch.prepare_batch(*mixed), ed25519_torch.prepare_batch(pubs, msgs, sigs)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 200])
+def test_rlc_lane_sum_matches_the_plain_version(rlc_lib, rlc_batch, n):
+    """The host build's block partition (one lane per 64 rows) sums to the
+    plain version's lanes (the JAX program's partition), prevalid is the
+    same and so is the equation's decision; on the honest rows it holds,
+    on the mixed ones (from 2 rows up) it does not."""
+    for prepared, honest in zip(rlc_batch, (False, True)):
+        rows, c_row = testkit.rlc_rows(tuple(a[:n] for a in prepared), seed=16 + n)
+        lanes, prevalid = _rlc(rlc_lib, rows)
+        plain, plain_prevalid = ed25519_torch.verify_core_rlc(*map(torch.from_numpy, rows))
+        assert np.array_equal(prevalid, plain_prevalid.numpy())
+        assert ref.pt_equal(_sum(_lane_points(lanes)), _sum(_pt_points(plain)))
+        decision = ed25519_torch.finalize_rlc(plain, c_row)
+        as_pt = ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64)))
+        assert ed25519_torch.finalize_rlc(as_pt, c_row) == decision
+        assert decision == (honest or n == 1)
+
+
+def test_rlc_fold_matches_the_plain_fold_lane_for_lane(rlc_lib):
+    """rlc_fold pairs lanes as _pt_reduce_to_lanes(acc, 128) does, so each
+    folded lane is the same point, odd widths included."""
+    for n in (129, 157, 300):
+        lanes = _random_lanes(n, n)
+        folded = _fold(rlc_lib, lanes)
+        assert len(folded) == kernels.reduced_width(n, 128)
+        plain = ed25519_torch._pt_reduce_to_lanes(
+            ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64))), 128)
+        assert _lane_points(folded) == _pt_points(plain)
+        assert ref.pt_equal(_sum(_lane_points(folded)), _sum(_lane_points(lanes)))
+    few = _random_lanes(1, 5)
+    assert np.array_equal(_fold(rlc_lib, few), few)
 
 
 def test_verify_rows_on_a_mixed_batch(host_lib):

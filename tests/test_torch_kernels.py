@@ -85,3 +85,60 @@ def test_zero_rows_and_empty_batches(cuda):
     assert ed25519_torch.verify_rows(empty, empty, empty, empty, valid[:0]).shape == (0,)
     np.testing.assert_array_equal(
         kernels.base_table(cuda).cpu().numpy(), kernels.table_from_points(ref.base_point_table()))
+
+
+def _lane_sum(lanes) -> tuple:
+    """The points of a [P]-lane tensor (plain limbs), summed in big-int."""
+    coords = [c.cpu().numpy() for c in lanes.astuple()]
+    total = ref.IDENTITY
+    for i in range(coords[0].shape[0]):
+        total = ref.pt_add(total, tuple(fe25519.int_from_limbs(c[i]) % ref.P for c in coords))
+    return total
+
+
+def test_rlc_kernel_matches_plain_on_a_mixed_batch_across_blocks(cuda):
+    keys = testkit.validator_keys(seed=6, n=200)
+    msgs = [b"vote %d" % i for i in range(200)]
+    pubs = [k.pub_key().bytes_() for k in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    mixed = testkit.mixed_batch(pubs, msgs, sigs, seed=7)[:3]
+    for triples, honest in ((mixed, False), ((pubs, msgs, sigs), True)):
+        rows, c_row = testkit.rlc_rows(ed25519_torch.prepare_batch(*triples), seed=8)
+        rows = ed25519_torch.rows_to_device(rows, cuda)
+        before = kernels.LAUNCHES["ed25519_rlc"]
+        lanes, prevalid = kernels.ed25519_rlc(*rows)
+        assert kernels.LAUNCHES["ed25519_rlc"] == before + 1
+        assert lanes.shape == (4, 4, 5)
+        plain, plain_prevalid = ed25519_torch.verify_core_rlc(*rows)
+        assert torch.equal(prevalid, plain_prevalid)
+        kernel_pt = ed25519_torch.lanes_to_pt(lanes)
+        assert ref.pt_equal(_lane_sum(kernel_pt), _lane_sum(plain))
+        assert ed25519_torch.finalize_rlc(kernel_pt, c_row) == honest
+        assert ed25519_torch.finalize_rlc(plain, c_row) == honest
+
+
+def test_rlc_fold_kernel_matches_plain_lane_for_lane(cuda):
+    rng = np.random.default_rng(9)
+    pts = [ref.scalar_mult_base(int(rng.integers(1, 1 << 62))) for _ in range(301)]
+    lanes = torch.tensor([[kernels.limbs51(c) for c in p] for p in pts], device=cuda)
+    before = kernels.LAUNCHES["rlc_fold"]
+    folded = kernels.rlc_fold(lanes)
+    assert kernels.LAUNCHES["rlc_fold"] == before + 1
+    assert folded.shape == (kernels.reduced_width(301, 128), 4, 5)
+    plain = ed25519_torch._pt_reduce_to_lanes(ed25519_torch.lanes_to_pt(lanes), 128)
+    assert torch.equal(ed25519_torch.pt_rows(ed25519_torch.lanes_to_pt(folded)),
+                       ed25519_torch.pt_rows(plain))
+
+
+def test_verify_batch_rlc_on_the_card(cuda):
+    cases = testkit.adversarial_cases(seed=0)
+    pubs, msgs, sigs = ([c[i] for c in cases] for i in range(3))
+    want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    before = dict(kernels.LAUNCHES), dict(ed25519_torch.RLC_STATS)
+    assert ed25519_torch.verify_batch_rlc(pubs, msgs, sigs).tolist() == want
+    assert kernels.LAUNCHES["ed25519_rlc"] == before[0]["ed25519_rlc"] + 1
+    assert kernels.LAUNCHES["ed25519_verify"] == before[0]["ed25519_verify"] + 1
+    assert ed25519_torch.RLC_STATS["fallback"] == before[1]["fallback"] + 1
+    honest = [i for i, ok in enumerate(want) if ok]
+    got = ed25519_torch.verify_batch_rlc(*([col[i] for i in honest] for col in (pubs, msgs, sigs)))
+    assert got.all() and ed25519_torch.RLC_STATS["pass"] == before[1]["pass"] + 1

@@ -3,6 +3,7 @@ entry points never fall back to the CPU, and its kernel wrappers take
 CUDA tensors only."""
 
 import ast
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -77,6 +78,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.fe_ops(rows, rows)
     with pytest.raises(ValueError, match="expected a tensor on"):
         kernels.decompress(rows)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.ed25519_rlc(rows, rows, rows, rows[:, :16].contiguous(), valid)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.rlc_fold(torch.zeros((130, 4, 5), dtype=torch.int64))
     assert kernels.LAUNCHES == before
 
 
@@ -108,6 +113,24 @@ def test_kernel_build_targets_sm90a_in_the_ignored_build_dir():
     path = kernels.library_path()
     assert path.parent == ROOT / "tendermint_tpu_torch" / "_build"
     assert "tendermint_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_library_name_hashes_headers_and_builds_only_cu(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh must give a new library (else a stale build in
+    _build/ would be loaded), while nvcc compiles only the .cu files."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    assert [p.name for p in kernels._sources()] == ["ed25519_rlc.cu", "ed25519_verify.cu"]
+    first = kernels.library_path()
+    assert first == kernels.library_path()
+    header = csrc / "ed25519_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = kernels.library_path()
+    assert second != first and second.parent == first.parent
+    source = csrc / "ed25519_rlc.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert kernels.library_path() not in (first, second)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
