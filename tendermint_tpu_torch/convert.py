@@ -14,10 +14,11 @@ from .ops import kernels
 from .types.validator import Validator, ValidatorSet
 
 _JAX_LIMB_BITS = 17
+_COMB_LIMB_BITS = {"int64": 17, "f32": 5}  # the layouts a float32 comb table holds exactly
 
 
-def _int_from_limbs17(limbs) -> int:
-    return sum(int(v) << (_JAX_LIMB_BITS * i) for i, v in enumerate(limbs))
+def _int_from_limbs(limbs, bits: int = _JAX_LIMB_BITS) -> int:
+    return sum(int(v) << (bits * i) for i, v in enumerate(limbs))
 
 
 def tables_from_jax(x, y, z, t) -> torch.Tensor:
@@ -28,9 +29,26 @@ def tables_from_jax(x, y, z, t) -> torch.Tensor:
     for c in coords:
         if c.shape != (64, 16, 15):
             raise ValueError(f"expected [64, 16, 15] limb arrays, got {c.shape}")
-    rows = [[tuple(_int_from_limbs17(c[i, j]) for c in coords) for j in range(16)]
+    rows = [[tuple(_int_from_limbs(c[i, j]) for c in coords) for j in range(16)]
             for i in range(64)]
     return torch.as_tensor(kernels.table_from_points(rows))
+
+
+def comb_table_from_jax(table, impl: str) -> torch.Tensor:
+    """The JAX package's comb table ``_Core(fe)._fixed_base_tables256``,
+    float32 [32, 256, 4 * NLIMBS] in the limbs of `impl` ("int64" or
+    "f32"; its packed limbs are past float32's exact range) -> the comb
+    kernels' byte table, uint8 [32, 128, 256] on the CPU."""
+    if impl not in _COMB_LIMB_BITS:
+        raise ValueError(f"no exact comb table in the {impl!r} layout")
+    bits = _COMB_LIMB_BITS[impl]
+    limbs = np.asarray(table).astype(np.int64)
+    nl = 255 // bits
+    if limbs.shape != (32, 256, 4 * nl):
+        raise ValueError(f"expected a [32, 256, {4 * nl}] table, got {limbs.shape}")
+    rows = [[tuple(_int_from_limbs(limbs[i, j, c * nl:(c + 1) * nl], bits) for c in range(4))
+             for j in range(256)] for i in range(32)]
+    return torch.as_tensor(kernels.comb_table_from_points(rows))
 
 
 def validator_set_from_numpy(pubs, powers) -> ValidatorSet:

@@ -3,9 +3,10 @@ collects its signatures here and verifies them in one call.
 
 Counterpart of ``tendermint_tpu/crypto/batch.py``.  Backends:
   * "torch" — ``TorchBatchVerifier``: the whole batch in one launch of the
-              ``ed25519_verify`` CUDA kernel (``ops/ed25519_torch``), or
-              its plain PyTorch version for ``device="cpu"``; with
-              ``TM_CUDA_RLC=1``, through the RLC batch equation instead.
+              verify CUDA kernel of the field layout ``TM_CUDA_FIELD_IMPL``
+              selects (``ops/ed25519_torch``), or its plain PyTorch
+              version for ``device="cpu"``; with ``TM_CUDA_RLC=1``,
+              through the RLC batch equation instead.
   * "cpu"   — ``CPUBatchVerifier``: the pure ZIP-215 reference, one
               signature at a time.
 A batch holding a 33-byte secp256k1 key raises ``NotImplementedError``:
@@ -87,13 +88,16 @@ class CPUBatchVerifier(_BaseBatch):
 
 
 class TorchBatchVerifier(_BaseBatch):
-    """One ``ed25519_verify`` kernel launch verifies the entire batch.
+    """One verify kernel launch verifies the entire batch.
 
+    ``TM_CUDA_FIELD_IMPL`` and ``TM_CUDA_BASE_MXU``, read at every call
+    (``ed25519_torch.default_impl``, ``_resolve_optin``), choose the
+    kernel: the field layout and whether [s]B takes the tensor-core comb.
     ``TM_CUDA_RLC=1``, read at every call, routes the batch through the
     RLC batch equation (``ed25519_torch.verify_batch_rlc``: one
-    ``ed25519_rlc`` launch, and the per-row kernel only if the equation
-    fails), the counterpart of ``TM_TPU_RLC``.  The verdicts are the same
-    either way.
+    ``ed25519_rlc`` launch, and the per-row kernel of the chosen layout
+    only if the equation fails), the counterpart of ``TM_TPU_RLC``.  The
+    verdicts are the same either way.
 
     ``device`` None means ``cuda``; with no CUDA device that raises
     rather than running on the CPU.  ``device="cpu"`` runs the kernels'

@@ -109,6 +109,23 @@ def base_point_table() -> tuple[tuple[Point, ...], ...]:
     return tuple(rows)
 
 
+@functools.cache
+def base_point_table256() -> tuple[tuple[Point, ...], ...]:
+    """[j * 256^i]B for i in 0..31, j in 0..255, the w=8 comb's table (a
+    signature's 32 s bytes are its radix-256 digits), built by additions
+    and doublings exactly as ``ed25519_jax._base_point_table256``."""
+    rows = []
+    g = BASE
+    for _i in range(32):
+        row = [IDENTITY]
+        for _j in range(255):
+            row.append(pt_add(row[-1], g))
+        rows.append(tuple(row))
+        for _ in range(8):
+            g = pt_double(g)
+    return tuple(rows)
+
+
 def scalar_mult_base(k: int) -> Point:
     """[k]B for 0 <= k < 2^256 from the fixed-base table: one addition
     per radix-16 digit, no doublings."""

@@ -53,7 +53,7 @@
 
 // The 16 multiples [0..15]p (14 additions).
 TM_DEV void table16(pt* tbl, const pt& p) {
-    tbl[0] = pt_identity();
+    tbl[0] = pt_identity<fe>();
     tbl[1] = p;
     for (int j = 2; j < 16; ++j) tbl[j] = pt_add(tbl[j - 1], p);
 }
@@ -134,10 +134,10 @@ ed25519_rlc_kernel(const uint8_t* __restrict__ pub, const uint8_t* __restrict__ 
         live = rlc_row_prepare(tbl, pub + (size_t)i * 32, r + (size_t)i * 32, valid[i] != 0);
         prevalid[i] = live ? 1 : 0;
     }
-    pt acc = pt_identity();
+    pt acc = pt_identity<fe>();
     for (int w = 63; w >= 0; --w) {
         terms[tid] = real ? rlc_row_term(tbl, zk + (size_t)i * 32, z + (size_t)i * 16, live, w)
-                          : pt_identity();
+                          : pt_identity<fe>();
         __syncthreads();
         // tree: level s adds terms[t + s] into terms[t] for t < s; reads
         // and writes of one level never touch the same slot twice
@@ -209,13 +209,13 @@ extern "C" int tm_host_ed25519_rlc(const uint8_t* pub, const uint8_t* r, const u
                                       valid[i] != 0);
             prevalid[i] = live[t] ? 1 : 0;
         }
-        pt acc = pt_identity();
+        pt acc = pt_identity<fe>();
         for (int w = 63; w >= 0; --w) {
             for (int t = 0; t < TM_RLC_THREADS; ++t) {
                 const int i = b * TM_RLC_THREADS + t;
                 terms[t] = i < n ? rlc_row_term(tbl[t], zk + (size_t)i * 32, z + (size_t)i * 16,
                                                 live[t], w)
-                                 : pt_identity();
+                                 : pt_identity<fe>();
             }
             for (int s = TM_RLC_THREADS / 2; s > 0; s >>= 1)
                 for (int t = 0; t < s; ++t) terms[t] = pt_add(terms[t], terms[t + s]);

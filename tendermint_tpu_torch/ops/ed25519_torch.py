@@ -1,5 +1,5 @@
 """Batched ZIP-215 Ed25519 verification: host prep, the plain PyTorch
-verify pipeline, and dispatch to the ``ed25519_verify`` CUDA kernel.
+verify pipeline, and dispatch to the verify CUDA kernels.
 
 Counterpart of ``tendermint_tpu/ops/ed25519_jax.py`` (``_Core`` and
 ``prepare_batch``).  Pipeline per batch:
@@ -14,9 +14,20 @@ Counterpart of ``tendermint_tpu/ops/ed25519_jax.py`` (``_Core`` and
 -[k]A is computed as [k](-A), never as [L-k]A: the two differ for points
 with a torsion component, exactly the inputs ZIP-215 admits.
 
-On a CUDA tensor, ``verify_rows`` launches the kernel; on a CPU tensor it
-runs ``verify_core``, the plain version, in the 15 x 17-bit limbs of
-``ops/fe25519.py``.  The kernel takes any N, so there is no bucket ladder.
+Field layouts (``impl``, as in the JAX package): "int64" (kernel
+``ed25519_verify``, 5 x 51-bit limbs; plain version in the 15 x 17-bit
+limbs of ``ops/fe25519.py``), "packed" (``ed25519_verify_packed``, 10 x
+25.5-bit limbs, ``ops/fe25519_packed.py``) and "f32"
+(``ed25519_verify_f32``, 51 signed 5-bit float limbs,
+``ops/fe25519_f32.py``).  With the comb (``base_mxu``, int64 and f32
+only) [s]B is a w=8 comb whose per-window selection is a one-hot x table
+product on the tensor cores (kernels ``ed25519_verify_comb`` and
+``ed25519_verify_f32_comb``).  ``verify_batch`` picks the layout per call
+(``TM_CUDA_FIELD_IMPL``, default ``auto``) and the comb
+(``TM_CUDA_BASE_MXU``) behind the golden-batch gate below.  On a CUDA
+tensor ``verify_rows`` launches the kernel; on a CPU tensor it runs
+``verify_core``, the plain version.  The kernels take any N, so there is
+no bucket ladder.
 
 The RLC path (``verify_batch_rlc``, counterpart of the JAX package's
 function of that name) checks the whole batch with one cofactored
@@ -33,16 +44,22 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import warnings
 
 import numpy as np
 import torch
 
+from .. import knobs
 from ..crypto import ed25519 as _ref
+from ..crypto.keys import PrivKey
 from . import fe25519 as fe
-from . import kernels
+from . import fe25519_f32, fe25519_packed, kernels
 
 L = _ref.L
 NWINDOWS = _ref.NWINDOWS
+
+IMPLS = ("int64", "f32", "packed")
+_FIELDS = {"int64": fe, "packed": fe25519_packed, "f32": fe25519_f32}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,12 +76,6 @@ def resolve_device(device=None) -> torch.device:
 # Unpacking
 # ---------------------------------------------------------------------------
 
-def _bits_of(rows: torch.Tensor) -> torch.Tensor:
-    """[..., 32] uint8 -> [..., 256] bits (LE bit order)."""
-    b = (rows[..., :, None].to(torch.int64) >> torch.arange(8, device=rows.device)) & 1
-    return b.reshape(rows.shape[:-1] + (256,))
-
-
 def _nibbles_of(rows: torch.Tensor) -> torch.Tensor:
     """[..., B] uint8 -> [..., 2B] little-endian radix-16 digits."""
     lo = (rows & 15).to(torch.int64)
@@ -72,45 +83,11 @@ def _nibbles_of(rows: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).reshape(rows.shape[:-1] + (2 * rows.shape[-1],))
 
 
-def _limbs_of(bits255: torch.Tensor) -> torch.Tensor:
-    """[..., 255] bits -> [..., 15] limbs."""
-    shaped = bits255.reshape(bits255.shape[:-1] + (fe.NLIMBS, fe.LIMB_BITS))
-    w = torch.as_tensor(1 << np.arange(fe.LIMB_BITS, dtype=np.int64), device=bits255.device)
-    return (shaped * w).sum(-1)
-
-
 # ---------------------------------------------------------------------------
-# Curve pipeline (plain version)
+# Curve pipeline (plain version), one per field layout
 # ---------------------------------------------------------------------------
 
-def decompress(y: torch.Tensor, sign: torch.Tensor):
-    """Permissive (ZIP-215) decompression.
-
-    y: [..., 15] limbs of the 255-bit y encoding (possibly >= p); sign:
-    [...] in {0, 1}.  Returns (point, on_curve).  x = 0 with sign 1 is
-    accepted and stays 0; the sign flip is taken on the canonical x."""
-    one = fe.const("ONE", y.device)
-    yy = fe.fe_sq(y)
-    u = fe.fe_sub(yy, one)
-    v = fe.fe_carry(fe.fe_add(fe.fe_mul(yy, fe.const("D", y.device)), one))
-    v2 = fe.fe_sq(v)
-    v3 = fe.fe_mul(v2, v)
-    v7 = fe.fe_mul(fe.fe_sq(v3), v)
-    t = fe.fe_pow_p58(fe.fe_mul(u, v7))
-    x = fe.fe_mul(fe.fe_mul(u, v3), t)  # candidate sqrt(u/v)
-    vx2 = fe.fe_mul(v, fe.fe_sq(x))
-    is_pos = fe.fe_eq(vx2, u)
-    is_neg = fe.fe_eq(vx2, fe.fe_carry(fe.fe_neg(fe.fe_canonical(u))))
-    ok = is_pos | is_neg
-    x = torch.where(is_neg[..., None], fe.fe_mul(x, fe.const("SQRT_M1", y.device)), x)
-    cx = fe.fe_canonical(x)
-    flip = (cx[..., 0] & 1) != sign
-    x = torch.where(flip[..., None], fe.fe_carry(fe.fe_neg(cx)), cx)
-    yr = fe.fe_canonical(y)
-    return fe.Pt(x, yr, one.expand(yr.shape), fe.fe_mul(x, yr)), ok
-
-
-def _select16(digit: torch.Tensor, tbl: list) -> fe.Pt:
+def _select16(digit: torch.Tensor, tbl: list):
     """tbl[digit] per batch element.  Every input is public, so a gather
     stands in for the JAX module's constant-time select tree."""
     rows = torch.arange(digit.shape[0], device=digit.device)
@@ -118,60 +95,129 @@ def _select16(digit: torch.Tensor, tbl: list) -> fe.Pt:
     return fe.Pt(*(torch.stack(torch.broadcast_tensors(*c))[digit, rows] for c in coords))
 
 
-def _scalarmul_var(digits: torch.Tensor, neg_a: fe.Pt) -> fe.Pt:
-    """[k](-A) by 4-bit fixed windows: a 16-entry per-signature table
-    (14 adds to build), then 63 iterations of 4 doublings + 1 add."""
-    shape = digits.shape[:-1]
-    tbl = [fe.pt_identity(shape, digits.device), neg_a]
-    for _ in range(14):
-        tbl.append(fe.pt_add(tbl[-1], neg_a))
-    acc = _select16(digits[..., NWINDOWS - 1], tbl)
-    for i in range(1, NWINDOWS):
-        acc = fe.pt_dbl_n(acc, 4)
-        acc = fe.pt_add(acc, _select16(digits[..., NWINDOWS - 1 - i], tbl))
-    return acc
+class _Core:
+    """The verify pipeline on one field layout (``fe``: ``ops/fe25519``,
+    ``ops/fe25519_packed`` or ``ops/fe25519_f32``), the counterpart of
+    the JAX package's ``_Core(fe)``."""
+
+    def __init__(self, impl: str):
+        self.impl = impl
+        self.fe = _FIELDS[impl]
+
+    def decompress(self, y: torch.Tensor, sign: torch.Tensor):
+        """Permissive (ZIP-215) decompression.
+
+        y: [..., NLIMBS] limbs of the 255-bit y encoding (possibly >= p);
+        sign: [...] in {0, 1}.  Returns (point, on_curve).  x = 0 with
+        sign 1 is accepted and stays 0; the sign flip is taken on the
+        canonical x."""
+        f = self.fe
+        one = f.const("ONE", y.device)
+        yy = f.fe_sq(y)
+        u = f.fe_sub(yy, one)
+        v = f.fe_carry(f.fe_add(f.fe_mul(yy, f.const("D", y.device)), one))
+        v2 = f.fe_sq(v)
+        v3 = f.fe_mul(v2, v)
+        v7 = f.fe_mul(f.fe_sq(v3), v)
+        t = f.fe_pow_p58(f.fe_mul(u, v7))
+        x = f.fe_mul(f.fe_mul(u, v3), t)  # candidate sqrt(u/v)
+        vx2 = f.fe_mul(v, f.fe_sq(x))
+        is_pos = f.fe_eq(vx2, u)
+        is_neg = f.fe_eq(vx2, f.fe_carry(f.fe_neg(f.fe_canonical(u))))
+        ok = is_pos | is_neg
+        x = torch.where(is_neg[..., None], f.fe_mul(x, f.const("SQRT_M1", y.device)), x)
+        cx = f.fe_canonical(x)
+        flip = (cx[..., 0].to(torch.int64) & 1) != sign
+        x = torch.where(flip[..., None], f.fe_carry(f.fe_neg(cx)), cx)
+        yr = f.fe_canonical(y)
+        return fe.Pt(x, yr, one.expand(yr.shape), f.fe_mul(x, yr)), ok
+
+    def decompress_rows(self, rows: torch.Tensor):
+        """decompress() of 32-byte encodings, uint8 [..., 32]."""
+        bits = fe.bits_of(rows)
+        return self.decompress(self.fe.limbs_of_bits(bits[..., :255]), bits[..., 255])
+
+    def scalarmul_var(self, digits: torch.Tensor, neg_a) -> fe.Pt:
+        """[k](-A) by 4-bit fixed windows: a 16-entry per-signature table
+        (14 adds to build), then 63 iterations of 4 doublings + 1 add."""
+        f = self.fe
+        tbl = [f.pt_identity(digits.shape[:-1], digits.device), neg_a]
+        for _ in range(14):
+            tbl.append(f.pt_add(tbl[-1], neg_a))
+        acc = _select16(digits[..., NWINDOWS - 1], tbl)
+        for i in range(1, NWINDOWS):
+            acc = f.pt_dbl_n(acc, 4)
+            acc = f.pt_add(acc, _select16(digits[..., NWINDOWS - 1 - i], tbl))
+        return acc
+
+    def scalarmul_base(self, digits: torch.Tensor) -> fe.Pt:
+        """[s]B from the radix-16 fixed-base tables: 63 additions."""
+        tx, ty, tz, tt = _fixed_base_tables(digits.device, self.impl)
+
+        def entry(i):
+            d = digits[..., i]
+            return fe.Pt(tx[i][d], ty[i][d], tz[i][d], tt[i][d])
+
+        acc = entry(0)
+        for i in range(1, NWINDOWS):
+            acc = self.fe.pt_add(acc, entry(i))
+        return acc
+
+    def scalarmul_base_mxu(self, s_rows: torch.Tensor) -> fe.Pt:
+        """[s]B by the w=8 comb, the plain version of the kernels' tensor-
+        core selection: the 32 s bytes are radix-256 digits, each window's
+        entry is the one-hot x table product of ``comb_select_plain`` on
+        the kernels' own byte table, unpacked to this layout's limbs; 31
+        additions."""
+        sel = comb_select_plain(s_rows, kernels.comb_table(s_rows.device))
+        limbs = self.fe.fe_from_bytes(sel.reshape(s_rows.shape[0], 32, 4, 32))
+        acc = fe.Pt(*limbs[:, 0].unbind(1))
+        for i in range(1, 32):
+            acc = self.fe.pt_add(acc, fe.Pt(*limbs[:, i].unbind(1)))
+        return acc
+
+    @torch.inference_mode()
+    def verify_core(self, pub_rows, r_rows, s_rows, k_rows, valid, base_mxu=False):
+        """Plain version of the verify kernels.  Inputs are packed rows
+        (uint8 [N, 32] each) and valid (bool [N]); returns bool [N].  Its
+        thousands of small ops run without autograd bookkeeping."""
+        f = self.fe
+        a_pt, ok_a = self.decompress_rows(pub_rows)
+        r_pt, ok_r = self.decompress_rows(r_rows)
+        sb = self.scalarmul_base_mxu(s_rows) if base_mxu else self.scalarmul_base(
+            _nibbles_of(s_rows))
+        w = f.pt_add(sb, self.scalarmul_var(_nibbles_of(k_rows), f.pt_neg(a_pt)))
+        q = f.pt_add(w, f.pt_neg(r_pt))
+        q8 = f.pt_dbl_n(q, 3)
+        return valid & ok_a & ok_r & f.pt_is_identity(q8)
 
 
 @functools.cache
-def _fixed_base_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The base-point table as four [64, 16, 15] limb tensors (X, Y, Z, T)
-    on `device` — the layout of ``_Core(fe25519)._fixed_base_tables``."""
-    coords = [np.zeros((NWINDOWS, 16, fe.NLIMBS), dtype=np.int64) for _ in range(4)]
+def _core(impl: str) -> _Core:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown field impl {impl!r}; expected one of {IMPLS}")
+    return _Core(impl)
+
+
+@functools.cache
+def _fixed_base_tables(device: torch.device, impl: str = "int64") -> tuple[torch.Tensor, ...]:
+    """The radix-16 base-point table as four [64, 16, NLIMBS] limb tensors
+    (X, Y, Z, T) of `impl`'s layout on `device`: the layout of the JAX
+    package's ``_Core(fe)._fixed_base_tables``."""
+    f = _FIELDS[impl]
+    coords = [np.zeros((NWINDOWS, 16, f.NLIMBS), dtype=np.asarray(f.limbs_from_int(0)).dtype)
+              for _ in range(4)]
     for i, row in enumerate(_ref.base_point_table()):
         for j, pt in enumerate(row):
             for c in range(4):
-                coords[c][i, j] = fe.limbs_from_int(pt[c])
+                coords[c][i, j] = f.limbs_from_int(pt[c])
     return tuple(torch.as_tensor(c, device=device) for c in coords)
 
 
-def _scalarmul_base(digits: torch.Tensor) -> fe.Pt:
-    """[s]B from the fixed-base tables: 63 additions, no doublings."""
-    tx, ty, tz, tt = _fixed_base_tables(digits.device)
-
-    def entry(i):
-        d = digits[..., i]
-        return fe.Pt(tx[i][d], ty[i][d], tz[i][d], tt[i][d])
-
-    acc = entry(0)
-    for i in range(1, NWINDOWS):
-        acc = fe.pt_add(acc, entry(i))
-    return acc
-
-
-@torch.inference_mode()
-def verify_core(pub_rows, r_rows, s_rows, k_rows, valid) -> torch.Tensor:
-    """Plain version of the ``ed25519_verify`` kernel.  Inputs are packed
-    rows (uint8 [N, 32] each) and valid (bool [N]); returns bool [N].
-    Its thousands of small int64 ops run without autograd bookkeeping."""
-    pub_bits = _bits_of(pub_rows)
-    r_bits = _bits_of(r_rows)
-    a_pt, ok_a = decompress(_limbs_of(pub_bits[..., :255]), pub_bits[..., 255])
-    r_pt, ok_r = decompress(_limbs_of(r_bits[..., :255]), r_bits[..., 255])
-    sb = _scalarmul_base(_nibbles_of(s_rows))
-    w = fe.pt_add(sb, _scalarmul_var(_nibbles_of(k_rows), fe.pt_neg(a_pt)))
-    q = fe.pt_add(w, fe.pt_neg(r_pt))
-    q8 = fe.pt_dbl_n(q, 3)
-    return valid & ok_a & ok_r & fe.pt_is_identity(q8)
+def verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64", base_mxu=False):
+    """Plain version of the verify kernel of `impl` (and of its comb
+    variant with `base_mxu`); bool [N]."""
+    return _core(impl).verify_core(pub_rows, r_rows, s_rows, k_rows, valid, base_mxu)
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +264,8 @@ def verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, reduce_lanes=REDUC
     prevalid = valid & A, R on the curve.  A row that is not prevalid
     selects digit 0, the identity, in every window.  The host finishes
     the equation (``finalize_rlc``)."""
-    pub_bits = _bits_of(pub_rows)
-    r_bits = _bits_of(r_rows)
-    a_pt, ok_a = decompress(_limbs_of(pub_bits[..., :255]), pub_bits[..., 255])
-    r_pt, ok_r = decompress(_limbs_of(r_bits[..., :255]), r_bits[..., 255])
+    a_pt, ok_a = _core("int64").decompress_rows(pub_rows)
+    r_pt, ok_r = _core("int64").decompress_rows(r_rows)
     prevalid = valid & ok_a & ok_r
     zk_digits = torch.where(prevalid[..., None], _nibbles_of(zk_rows), 0)
     z_digits = torch.where(prevalid[..., None], _nibbles_of(z_rows), 0)
@@ -255,8 +299,7 @@ def decompress_rows_plain(enc: torch.Tensor):
     """Plain version of the ``decompress`` kernel: from encodings
     (uint8 [N, 32]) the canonical (x, y) as uint8 [N, 2, 32] and the
     on-curve flag bool [N]."""
-    bits = _bits_of(enc)
-    pt, ok = decompress(_limbs_of(bits[..., :255]), bits[..., 255])
+    pt, ok = _core("int64").decompress_rows(enc)
     return torch.stack([fe.fe_to_bytes(pt.x), fe.fe_to_bytes(pt.y)], dim=-2), ok
 
 
@@ -264,13 +307,36 @@ def decompress_rows_plain(enc: torch.Tensor):
 # Dispatch: kernel on CUDA tensors, plain version on CPU tensors
 # ---------------------------------------------------------------------------
 
-def verify_rows(pub_rows, r_rows, s_rows, k_rows, valid) -> torch.Tensor:
-    """bool [N] verdicts for packed rows: the ``ed25519_verify`` kernel for
-    CUDA tensors, ``verify_core`` for CPU tensors."""
+def kernel_table(impl: str, base_mxu: bool, device: torch.device) -> torch.Tensor:
+    """The table the verify kernel of (`impl`, `base_mxu`) reads, on
+    `device`: the comb's bytes, the 5 x 51-bit table of ``ed25519_verify``,
+    or the plain version's own limb tables (the packed and f32 kernels
+    keep the JAX layouts) as one [64, 16, 4, NLIMBS] tensor."""
+    if base_mxu:
+        return kernels.comb_table(device)
+    if impl == "int64":
+        return kernels.base_table(device)
+    return _limb_table(device, impl)
+
+
+@functools.cache
+def _limb_table(device: torch.device, impl: str) -> torch.Tensor:
+    dtype = torch.int32 if impl == "packed" else torch.float32  # packed limbs < 2^26
+    return torch.stack(_fixed_base_tables(device, impl), dim=2).to(dtype).contiguous()
+
+
+def verify_rows(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64",
+                base_mxu=False) -> torch.Tensor:
+    """bool [N] verdicts for packed rows in the field layout `impl`, with
+    [s]B by the comb where `base_mxu`: the verify kernel of that pair for
+    CUDA tensors, ``verify_core`` for CPU tensors.  The comb is never
+    offered for packed, as in the JAX package."""
+    if base_mxu and impl == "packed":
+        raise ValueError("the comb ([s]B by TM_CUDA_BASE_MXU) is not offered for packed")
     if pub_rows.is_cuda:
-        return kernels.ed25519_verify(pub_rows, r_rows, s_rows, k_rows, valid,
-                                      kernels.base_table(pub_rows.device))
-    return verify_core(pub_rows, r_rows, s_rows, k_rows, valid)
+        return kernels.verify(impl, base_mxu)(pub_rows, r_rows, s_rows, k_rows, valid,
+                                              kernel_table(impl, base_mxu, pub_rows.device))
+    return verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl, base_mxu)
 
 
 def verify_rows_rlc(pub_rows, r_rows, zk_rows, z_rows, valid):
@@ -292,6 +358,25 @@ def decompress_rows(enc: torch.Tensor):
     if enc.is_cuda:
         return kernels.decompress(enc)
     return decompress_rows_plain(enc)
+
+
+def comb_select_plain(s_rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``comb_select`` kernel: per window w, the
+    one-hot [N, 256] x byte table [256, 128] product (float64, exact),
+    uint8 [N, 32, 128]."""
+    cols = table.to(torch.float64)
+    out = [torch.matmul(torch.nn.functional.one_hot(s_rows[:, w].to(torch.int64), 256)
+                        .to(torch.float64), cols[w].T) for w in range(32)]
+    return torch.stack(out, dim=1).to(torch.uint8)
+
+
+def comb_select_rows(s_rows: torch.Tensor) -> torch.Tensor:
+    """The ``comb_select`` kernel for a CUDA tensor, its plain version for a
+    CPU tensor, on the comb table of that device."""
+    table = kernels.comb_table(s_rows.device)
+    if s_rows.is_cuda:
+        return kernels.comb_select(s_rows, table)
+    return comb_select_plain(s_rows, table)
 
 
 # ---------------------------------------------------------------------------
@@ -356,17 +441,113 @@ def rows_to_device(rows, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in rows)
 
 
-def verify_batch(pubs, msgs, sigs, device=None) -> np.ndarray:
+# ---------------------------------------------------------------------------
+# The field layout and the comb, chosen per call behind a golden-batch gate
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the JAX package's default_impl / _resolve_auto_impl and
+# _optin_safe / _resolve_optin.  A layout or the comb is trusted on a
+# device only once it reproduces the golden batch's known verdicts there.
+# TM_CUDA_FIELD_IMPL and TM_CUDA_BASE_MXU are read at every call.
+
+OPTIN_STATE: dict[tuple[str, str, str], bool] = {}  # (flag, impl, device type) -> passed
+
+
+def default_impl(device=None) -> str:
+    """The field layout for a call on `device`: ``TM_CUDA_FIELD_IMPL`` as
+    read now when it names one, else (``auto``, or anything else) the
+    ladder of ``_resolve_auto_impl``."""
+    impl = knobs.read("TM_CUDA_FIELD_IMPL")
+    if impl in IMPLS:
+        return impl
+    return _resolve_auto_impl(resolve_device(device))
+
+
+def _resolve_auto_impl(device: torch.device) -> str:
+    """``auto``: int64 on the CPU, with no golden run.  On the card, the
+    JAX package's ladder in its order: f32 where its matrix-unit fe_mul
+    is available and gated (not ported yet, so never), else packed where
+    the packed kernel passes the golden batch, else int64."""
+    if device.type != "cuda":
+        return "int64"
+    if _optin_safe("impl", "packed", device):
+        return "packed"
+    return "int64"
+
+
+def _golden_batch():
+    """The JAX package's golden batch: 8 deterministic signatures, rows 3
+    and 6 corrupted.  Returns (prepared rows, numpy; verdicts wanted)."""
+    pubs, msgs, sigs, want = [], [], [], []
+    for i in range(8):
+        k = PrivKey(bytes([i + 41]) * 32)
+        m = b"optin-golden-%d" % i
+        s = k.sign(m)
+        ok = True
+        if i in (3, 6):
+            s = s[:-1] + bytes([s[-1] ^ 1])
+            ok = False
+        pubs.append(k.pub_key().bytes_())
+        msgs.append(m)
+        sigs.append(s)
+        want.append(ok)
+    return prepare_batch(pubs, msgs, sigs), want
+
+
+def _optin_safe(flag: str, impl: str, device: torch.device) -> bool:
+    """True iff `impl`'s verify kernel (flag "impl") or its comb variant
+    (flag "base_mxu") reproduces the golden verdicts on `device`.
+    Memoised per (flag, impl, device type).  A wrong verdict or a launch
+    error (the ``RuntimeError`` a wrapper or the CUDA runtime raises) warns
+    and refuses; a kernel that fails to build raises here, before the
+    check, and any other exception, a defect of the code, propagates, so
+    no refusal hides either."""
+    key = (flag, impl, device.type)
+    if key in OPTIN_STATE:
+        return OPTIN_STATE[key]
+    if device.type == "cuda":
+        kernels.library()
+    rows, want = _golden_batch()
+    try:
+        got = verify_rows(*rows_to_device(rows, device), impl=impl,
+                          base_mxu=flag == "base_mxu")
+        ok = got.cpu().tolist() == want
+    except RuntimeError as e:  # a launch error is a refusal too
+        warnings.warn(f"opt-in kernel {flag!r} ({impl}) failed its golden self-check "
+                      f"with an error; disabled: {e}")
+        ok = False
+    if not ok:
+        warnings.warn(f"opt-in kernel {flag!r} ({impl}) computed WRONG verdicts on "
+                      f"{device.type} (golden-batch self-check); the standard kernel "
+                      "is used instead")
+    OPTIN_STATE[key] = ok
+    return ok
+
+
+def _resolve_optin(impl: str, device: torch.device) -> bool:
+    """Whether this call takes the comb: ``TM_CUDA_BASE_MXU=1`` as read
+    now, never for packed (as in the JAX package), and only once the
+    comb passed its golden batch on this device."""
+    if knobs.read("TM_CUDA_BASE_MXU") != "1" or impl == "packed":
+        return False
+    return _optin_safe("base_mxu", impl, device)
+
+
+def verify_batch(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
     """ZIP-215 verification of the whole batch; bool [N] numpy.
 
-    On ``cuda`` (the default) one ``ed25519_verify`` launch covers the
-    batch; ``device="cpu"`` runs the plain version."""
+    On ``cuda`` (the default) one launch of the verify kernel of the
+    field layout `impl` (``default_impl()`` when None) covers the batch,
+    through the comb where ``_resolve_optin`` grants it;
+    ``device="cpu"`` runs the plain version."""
     dev = resolve_device(device)
     n = len(pubs)
     if n == 0:
         return np.zeros(0, dtype=bool)
+    impl = impl or default_impl(dev)
+    base_mxu = _resolve_optin(impl, dev)
     rows = rows_to_device(prepare_batch(pubs, msgs, sigs), dev)
-    return verify_rows(*rows).cpu().numpy()
+    return verify_rows(*rows, impl=impl, base_mxu=base_mxu).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +599,7 @@ def finalize_rlc(lanes: fe.Pt, c_row) -> bool:
     return _ref.pt_equal(_ref.scalar_mult(8, total), _ref.IDENTITY)
 
 
-def verify_batch_rlc(pubs, msgs, sigs, device=None) -> np.ndarray:
+def verify_batch_rlc(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
     """ZIP-215 verification of the whole batch through the RLC equation;
     bool [N] numpy, the same verdicts as ``verify_batch``.
 
@@ -426,11 +607,14 @@ def verify_batch_rlc(pubs, msgs, sigs, device=None) -> np.ndarray:
     on ``cuda``, the plain version for ``device="cpu"``.  A batch that
     passes returns prevalid.  A batch that fails (it holds a bad row, or,
     with probability about 2^-125, z was unlucky) is decided by the exact
-    per-row ``verify_rows`` on the rows already prepared."""
+    per-row ``verify_rows`` on the rows already prepared, in the field
+    layout `impl` (``default_impl()`` when None): the RLC kernels
+    themselves keep 5 x 51-bit limbs whatever the layout."""
     dev = resolve_device(device)
     n = len(pubs)
     if n == 0:
         return np.zeros(0, dtype=bool)
+    impl = impl or default_impl(dev)
     pub_rows, r_rows, s_rows, k_rows, valid = prepare_batch(pubs, msgs, sigs)
     z_rows, zk_rows, c_row = prepare_rlc_scalars(s_rows, k_rows, valid)
     pub_d, r_d, zk_d, z_d, valid_d = rows_to_device(
@@ -441,4 +625,5 @@ def verify_batch_rlc(pubs, msgs, sigs, device=None) -> np.ndarray:
         return prevalid.cpu().numpy()
     RLC_STATS["fallback"] += 1
     s_d, k_d = rows_to_device((s_rows, k_rows), dev)
-    return verify_rows(pub_d, r_d, s_d, k_d, valid_d).cpu().numpy()
+    return verify_rows(pub_d, r_d, s_d, k_d, valid_d, impl=impl,
+                       base_mxu=_resolve_optin(impl, dev)).cpu().numpy()

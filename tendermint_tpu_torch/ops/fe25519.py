@@ -36,6 +36,7 @@ from . import kernels
 NLIMBS = 15
 LIMB_BITS = 17
 MASK = (1 << LIMB_BITS) - 1
+DTYPE = torch.int64
 
 P = _ref.P
 
@@ -134,30 +135,33 @@ def fe_neg(a: torch.Tensor) -> torch.Tensor:
     return _c("4P", a) - a
 
 
-def fe_pow2k(a: torch.Tensor, k: int) -> torch.Tensor:
-    """a^(2^k) by k squarings."""
-    for _ in range(k):
-        a = fe_sq(a)
-    return a
+def pow_p58_chain(a: torch.Tensor, mul, sq) -> torch.Tensor:
+    """a^((p-5)/8) = a^(2^252 - 3), the sqrt-ratio exponent, by the
+    addition chain every field layout shares: 251 squarings and 11
+    multiplies through that layout's `mul` and `sq`."""
+    def pow2k(v, k):
+        for _ in range(k):
+            v = sq(v)
+        return v
+
+    z2 = sq(a)
+    z8 = pow2k(z2, 2)
+    z9 = mul(z8, a)
+    z11 = mul(z9, z2)
+    z22 = sq(z11)
+    z_5_0 = mul(z22, z9)  # a^(2^5-1)
+    z_10_0 = mul(pow2k(z_5_0, 5), z_5_0)  # a^(2^10-1)
+    z_20_0 = mul(pow2k(z_10_0, 10), z_10_0)
+    z_40_0 = mul(pow2k(z_20_0, 20), z_20_0)
+    z_50_0 = mul(pow2k(z_40_0, 10), z_10_0)
+    z_100_0 = mul(pow2k(z_50_0, 50), z_50_0)
+    z_200_0 = mul(pow2k(z_100_0, 100), z_100_0)
+    z_250_0 = mul(pow2k(z_200_0, 50), z_50_0)
+    return mul(pow2k(z_250_0, 2), a)  # a^(2^252-3)
 
 
 def fe_pow_p58(a: torch.Tensor) -> torch.Tensor:
-    """a^((p-5)/8) = a^(2^252 - 3), the sqrt-ratio exponent: 251
-    squarings and 11 multiplies."""
-    z2 = fe_sq(a)
-    z8 = fe_pow2k(z2, 2)
-    z9 = fe_mul(z8, a)
-    z11 = fe_mul(z9, z2)
-    z22 = fe_sq(z11)
-    z_5_0 = fe_mul(z22, z9)  # a^(2^5-1)
-    z_10_0 = fe_mul(fe_pow2k(z_5_0, 5), z_5_0)  # a^(2^10-1)
-    z_20_0 = fe_mul(fe_pow2k(z_10_0, 10), z_10_0)
-    z_40_0 = fe_mul(fe_pow2k(z_20_0, 20), z_20_0)
-    z_50_0 = fe_mul(fe_pow2k(z_40_0, 10), z_10_0)
-    z_100_0 = fe_mul(fe_pow2k(z_50_0, 50), z_50_0)
-    z_200_0 = fe_mul(fe_pow2k(z_100_0, 100), z_100_0)
-    z_250_0 = fe_mul(fe_pow2k(z_200_0, 50), z_50_0)
-    return fe_mul(fe_pow2k(z_250_0, 2), a)  # a^(2^252-3)
+    return pow_p58_chain(a, fe_mul, fe_sq)
 
 
 def _fe_carry_exact(c: torch.Tensor) -> torch.Tensor:
@@ -207,22 +211,35 @@ def fe_is_zero(a: torch.Tensor) -> torch.Tensor:
 _LIMB_WEIGHTS = 1 << np.arange(LIMB_BITS, dtype=np.int64)
 
 
+def bits_of(rows: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., B] -> [..., 8B] bits (LE bit order)."""
+    b = (rows[..., :, None].to(torch.int64) >> torch.arange(8, device=rows.device)) & 1
+    return b.reshape(rows.shape[:-1] + (8 * rows.shape[-1],))
+
+
+def bytes_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., 255] LE bits -> uint8 [..., 32] (bit 255 clear)."""
+    bits = torch.nn.functional.pad(bits, (0, 1)).reshape(bits.shape[:-1] + (32, 8))
+    return (bits << torch.arange(8, device=bits.device)).sum(-1).to(torch.uint8)
+
+
+def limbs_of_bits(bits255: torch.Tensor) -> torch.Tensor:
+    """[..., 255] LE bits -> [..., 15] limbs."""
+    shaped = bits255.reshape(bits255.shape[:-1] + (NLIMBS, LIMB_BITS))
+    return (shaped * torch.as_tensor(_LIMB_WEIGHTS, device=bits255.device)).sum(-1)
+
+
 def fe_from_bytes(rows: torch.Tensor) -> torch.Tensor:
     """uint8 [..., 32] -> limbs of the low 255 bits (bit 255 dropped; the
     value may be >= p, which the arithmetic tolerates)."""
-    bits = (rows[..., :, None].to(torch.int64) >> torch.arange(8, device=rows.device)) & 1
-    bits = bits.reshape(rows.shape[:-1] + (256,))[..., :255]
-    shaped = bits.reshape(rows.shape[:-1] + (NLIMBS, LIMB_BITS))
-    return (shaped * torch.as_tensor(_LIMB_WEIGHTS, device=rows.device)).sum(-1)
+    return limbs_of_bits(bits_of(rows)[..., :255])
 
 
 def fe_to_bytes(a: torch.Tensor) -> torch.Tensor:
     """Limbs -> canonical 32-byte little-endian encoding, uint8 [..., 32]."""
     c = fe_canonical(a)
     bits = (c[..., :, None] >> torch.arange(LIMB_BITS, device=a.device)) & 1
-    bits = bits.reshape(a.shape[:-1] + (NLIMBS * LIMB_BITS,))
-    bits = torch.nn.functional.pad(bits, (0, 1)).reshape(a.shape[:-1] + (32, 8))
-    return (bits << torch.arange(8, device=a.device)).sum(-1).to(torch.uint8)
+    return bytes_of_bits(bits.reshape(a.shape[:-1] + (NLIMBS * LIMB_BITS,)))
 
 
 def fe_ops(a_rows: torch.Tensor, b_rows: torch.Tensor):

@@ -13,10 +13,15 @@ CUDA tensors only: the plain versions live beside the callers
 (``ops/ed25519_torch.py``, ``ops/fe25519.py``), which pick one or the
 other by the tensor's device.  Nothing here falls back to them.
 
-Kernels: ``ed25519_verify``, ``fe_ops`` and ``decompress``
-(``csrc/ed25519_verify.cu``); ``ed25519_rlc`` and ``rlc_fold``
-(``csrc/ed25519_rlc.cu``).  Both sources include the field and point
-functions of ``csrc/ed25519_common.cuh``.
+Kernels: ``ed25519_verify``, its comb variant ``ed25519_verify_comb``,
+``fe_ops``, ``decompress`` and ``comb_select`` (``csrc/ed25519_verify.cu``,
+5 x 51-bit limbs); ``ed25519_verify_packed`` and ``fe_ops_packed``
+(``csrc/ed25519_verify_packed.cu``, 10 x 25.5-bit limbs);
+``ed25519_verify_f32``, ``ed25519_verify_f32_comb`` and ``fe_ops_f32``
+(``csrc/ed25519_verify_f32.cu``, 51 x 5-bit float limbs); ``ed25519_rlc``
+and ``rlc_fold`` (``csrc/ed25519_rlc.cu``).  Every source includes the
+curve pipeline of ``csrc/ed25519_common.cuh``; the comb's tensor-core
+selection is ``csrc/base_comb.cuh``.
 """
 
 from __future__ import annotations
@@ -39,22 +44,27 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # Launches per kernel since the last reset_launches(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {"ed25519_verify": 0, "fe_ops": 0, "decompress": 0, "ed25519_rlc": 0,
-            "rlc_fold": 0}
+LAUNCHES = {name: 0 for name in (
+    "ed25519_verify", "ed25519_verify_comb", "ed25519_verify_packed", "ed25519_verify_f32",
+    "ed25519_verify_f32_comb", "fe_ops", "fe_ops_packed", "fe_ops_f32", "decompress",
+    "comb_select", "ed25519_rlc", "rlc_fold")}
 
 RLC_THREADS = 64  # rows per block of ed25519_rlc; each block writes one lane
 RLC_MAX_LANES = 128  # rlc_fold folds the lanes to this many or fewer
+COMB_SHAPE = (32, 128, 256)  # the comb table: window, byte of X|Y|Z|T, digit
 
 # Field multiplies and squarings one row of each kernel performs (fixed:
 # no loop depends on the data), as a host build of csrc/ counts them
 # (TM_COUNT_FIELD_OPS; tests/test_torch_kernel_host.py holds these tables
 # to that count).  ed25519_rlc adds a per-block term for the tree and the
-# block's Horner chain; a "row" of rlc_fold is a lane it folds away.  A
-# multiply is 25 and a squaring 15 products of 51-bit limbs, each at least
-# four 32-bit multiply-adds.
+# block's Horner chain; a "row" of rlc_fold is a lane it folds away.  The
+# packed and f32 doublings square x + y with a multiply, as their JAX
+# formulas do.  The comb takes 31 fixed-base additions instead of 63.
 _PT_ADD = (9, 0)
 _PT_DBL_T = (4, 4)
 _PT_DBL = (3, 4)
+_PT_DBL_T_MUL = (5, 3)  # packed, f32
+_PT_DBL_MUL = (4, 3)
 _POW_P58 = (11, 251)
 _DECOMPRESS = (9 + _POW_P58[0], 4 + _POW_P58[1])
 
@@ -63,11 +73,22 @@ def _ops(*terms):
     return (sum(c * m for c, (m, _) in terms), sum(c * s for c, (_, s) in terms))
 
 
+def _verify_ops(base_adds: int, dbl, dbl_t):
+    return _ops((2, _DECOMPRESS), (base_adds, _PT_ADD),                   # [s]B
+                (14 + 63, _PT_ADD), (3 * 63, dbl), (63, dbl_t),           # [k](-A)
+                (2, _PT_ADD), (3, dbl))
+
+
+_FE_OPS = _ops((1, (1, 0)), (1, (0, 1)), (1, _POW_P58))
 FIELD_OPS_PER_ROW = {
-    "ed25519_verify": _ops((2, _DECOMPRESS), (63, _PT_ADD),            # [s]B
-                           (14 + 63, _PT_ADD), (3 * 63, _PT_DBL),      # [k](-A)
-                           (63, _PT_DBL_T), (2, _PT_ADD), (3, _PT_DBL)),
-    "fe_ops": _ops((1, (1, 0)), (1, (0, 1)), (1, _POW_P58)),
+    "ed25519_verify": _verify_ops(63, _PT_DBL, _PT_DBL_T),
+    "ed25519_verify_comb": _verify_ops(31, _PT_DBL, _PT_DBL_T),
+    "ed25519_verify_packed": _verify_ops(63, _PT_DBL_MUL, _PT_DBL_T_MUL),
+    "ed25519_verify_f32": _verify_ops(63, _PT_DBL_MUL, _PT_DBL_T_MUL),
+    "ed25519_verify_f32_comb": _verify_ops(31, _PT_DBL_MUL, _PT_DBL_T_MUL),
+    "fe_ops": _FE_OPS,
+    "fe_ops_packed": _FE_OPS,
+    "fe_ops_f32": _FE_OPS,
     "decompress": _ops((1, _DECOMPRESS)),
     "ed25519_rlc": _ops((2, _DECOMPRESS), (2 * 14, _PT_ADD),          # tables of -A, -R
                         (32, _PT_ADD)),                               # + [z_w](-R), w < 32
@@ -77,6 +98,22 @@ FIELD_OPS_PER_BLOCK = {  # 64 windows of: a tree over the block's rows, then Hor
     "ed25519_rlc": _ops((64 * (RLC_THREADS - 1), _PT_ADD),
                         (64 * 3, _PT_DBL), (64, _PT_DBL_T), (64, _PT_ADD)),
 }
+
+# Per layout: the limb products of one multiply and of one squaring, as
+# instructions of the pipe that bounds them.  5 x 51: a 51 x 51-bit
+# product is four 32-bit multiply-adds (IMAD); packed: a 32 x 32 -> 64-bit
+# product is one IMAD.WIDE.U32; f32: one FFMA per product.
+LAYOUT_PRODUCTS = {"51": (4 * 25, 4 * 15, "imad"), "packed": (100, 55, "imad"),
+                   "f32": (2601, 1326, "ffma")}
+
+
+_LAYOUT = {"ed25519_verify_packed": "packed", "fe_ops_packed": "packed",
+           "ed25519_verify_f32": "f32", "ed25519_verify_f32_comb": "f32", "fe_ops_f32": "f32"}
+
+
+def layout(kernel: str) -> str:
+    """The field layout of `kernel`'s limbs: "51", "packed" or "f32"."""
+    return _LAYOUT.get(kernel, "51")
 
 
 def reduced_width(n: int, target: int) -> int:
@@ -103,11 +140,12 @@ def field_ops(kernel: str, n: int) -> tuple[int, int]:
     return rows * muls + blocks * block_muls, rows * sqs + blocks * block_sqs
 
 
-def imads(kernel: str, n: int) -> int:
-    """32-bit multiply-adds in the limb products of one launch of `kernel`
-    on n rows."""
+def operations(kernel: str, n: int) -> tuple[int, str]:
+    """(instructions, pipe) of the limb products of one launch of `kernel`
+    on n rows: the operation count its bound is computed from."""
     muls, sqs = field_ops(kernel, n)
-    return 4 * (25 * muls + 15 * sqs)
+    per_mul, per_sq, pipe = LAYOUT_PRODUCTS[layout(kernel)]
+    return per_mul * muls + per_sq * sqs, pipe
 
 
 def reset_launches() -> None:
@@ -187,14 +225,16 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tm_ed25519_verify.argtypes = [p, p, p, p, p, p, p, i, p]
-    lib.tm_fe_ops.argtypes = [p, p, p, p, p, i, p]
+    for name in VERIFY_KERNELS.values():
+        getattr(lib, f"tm_{name}").argtypes = [p, p, p, p, p, p, p, i, p]
+    for name in ("fe_ops", "fe_ops_packed", "fe_ops_f32"):
+        getattr(lib, f"tm_{name}").argtypes = [p, p, p, p, p, i, p]
     lib.tm_decompress.argtypes = [p, p, p, i, p]
+    lib.tm_comb_select.argtypes = [p, p, p, i, p]
     lib.tm_ed25519_rlc.argtypes = [p, p, p, p, p, p, p, i, p]
     lib.tm_rlc_fold.argtypes = [p, p, i, p]
-    for fn in (lib.tm_ed25519_verify, lib.tm_fe_ops, lib.tm_decompress, lib.tm_ed25519_rlc,
-               lib.tm_rlc_fold):
-        fn.restype = ctypes.c_int
+    for name in LAUNCHES:
+        getattr(lib, f"tm_{name}").restype = ctypes.c_int
     return lib
 
 
@@ -229,6 +269,25 @@ def base_table(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(table_from_points(_ref.base_point_table()), device=device)
 
 
+def comb_table_from_points(rows) -> np.ndarray:
+    """[32][256] big-int extended points -> uint8 [32, 128, 256], the
+    comb's layout: window, byte of the canonical X | Y | Z | T encodings,
+    digit.  Column-major per window, so the tensor cores' B operand (four
+    digits of one byte) is one aligned 32-bit load."""
+    out = np.zeros((256, 32, 128), dtype=np.uint8)
+    for i, row in enumerate(rows):
+        for j, point in enumerate(row):
+            enc = b"".join((c % _ref.P).to_bytes(32, "little") for c in point)
+            out[j, i] = np.frombuffer(enc, dtype=np.uint8)
+    return np.ascontiguousarray(out.transpose(1, 2, 0))
+
+
+@functools.cache
+def comb_table(device: torch.device) -> torch.Tensor:
+    """[j * 256^i]B in the comb's layout on `device`, built once (1 MiB)."""
+    return torch.as_tensor(comb_table_from_points(_ref.base_point_table256()), device=device)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -253,29 +312,53 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def ed25519_verify(pub, r, s, k, valid, table) -> torch.Tensor:
-    """bool [N] verdicts for packed rows uint8 [N, 32] x 4, valid bool [N]
-    and the fixed-base table int64 [64, 16, 4, 5] (``base_table``)."""
+# (field layout, comb) -> verify kernel; the table each one reads
+VERIFY_KERNELS = {("int64", False): "ed25519_verify", ("int64", True): "ed25519_verify_comb",
+                  ("packed", False): "ed25519_verify_packed",
+                  ("f32", False): "ed25519_verify_f32", ("f32", True): "ed25519_verify_f32_comb"}
+_TABLES = {"ed25519_verify": (torch.int64, (64, 16, 4, 5)),
+           "ed25519_verify_packed": (torch.int32, (64, 16, 4, 10)),
+           "ed25519_verify_f32": (torch.float32, (64, 16, 4, 51)),
+           "ed25519_verify_comb": (torch.uint8, COMB_SHAPE),
+           "ed25519_verify_f32_comb": (torch.uint8, COMB_SHAPE)}
+
+
+def _verify(kernel: str, pub, r, s, k, valid, table) -> torch.Tensor:
+    """bool [N] verdicts from one launch of a verify kernel: packed rows
+    uint8 [N, 32] x 4, valid bool [N] and the kernel's table."""
     n = pub.shape[0]
     dev = pub.device
     for name, t in (("pub", pub), ("r", r), ("s", s), ("k", k)):
         _check(t, name, torch.uint8, (n, 32), dev)
     _check(valid, "valid", torch.bool, (n,), dev)
-    _check(table, "table", torch.int64, (64, 16, 4, 5), dev)
+    _check(table, "table", *_TABLES[kernel], dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         with torch.cuda.device(dev):
-            err = library().tm_ed25519_verify(pub.data_ptr(), r.data_ptr(), s.data_ptr(),
-                                              k.data_ptr(), valid.data_ptr(), table.data_ptr(),
-                                              out.data_ptr(), n, _stream(dev))
-        _raise_on(err, "ed25519_verify")
-        LAUNCHES["ed25519_verify"] += 1
+            err = getattr(library(), f"tm_{kernel}")(
+                pub.data_ptr(), r.data_ptr(), s.data_ptr(), k.data_ptr(), valid.data_ptr(),
+                table.data_ptr(), out.data_ptr(), n, _stream(dev))
+        _raise_on(err, kernel)
+        LAUNCHES[kernel] += 1
     return out
 
 
-def fe_ops(a, b):
-    """From 255-bit encodings a, b (uint8 [N, 32]): canonical a*b, a^2 and
-    a^((p-5)/8), each uint8 [N, 32]."""
+def verify(impl: str, base_mxu: bool = False):
+    """The wrapper of the verify kernel for field layout `impl` (with the
+    comb where `base_mxu`); it takes (pub, r, s, k, valid, table)."""
+    try:
+        return functools.partial(_verify, VERIFY_KERNELS[(impl, base_mxu)])
+    except KeyError:
+        raise ValueError(f"no verify kernel for impl={impl!r}, base_mxu={base_mxu}") from None
+
+
+def ed25519_verify(pub, r, s, k, valid, table) -> torch.Tensor:
+    """5 x 51-bit limbs; the fixed-base table int64 [64, 16, 4, 5]
+    (``base_table``)."""
+    return _verify("ed25519_verify", pub, r, s, k, valid, table)
+
+
+def _fe_ops(kernel: str, a, b):
     n = a.shape[0]
     dev = a.device
     _check(a, "a", torch.uint8, (n, 32), dev)
@@ -283,11 +366,47 @@ def fe_ops(a, b):
     outs = [torch.empty((n, 32), dtype=torch.uint8, device=dev) for _ in range(3)]
     if n:
         with torch.cuda.device(dev):
-            err = library().tm_fe_ops(a.data_ptr(), b.data_ptr(),
-                                      *(o.data_ptr() for o in outs), n, _stream(dev))
-        _raise_on(err, "fe_ops")
-        LAUNCHES["fe_ops"] += 1
+            err = getattr(library(), f"tm_{kernel}")(a.data_ptr(), b.data_ptr(),
+                                                     *(o.data_ptr() for o in outs), n,
+                                                     _stream(dev))
+        _raise_on(err, kernel)
+        LAUNCHES[kernel] += 1
     return tuple(outs)
+
+
+def fe_ops(a, b):
+    """From 255-bit encodings a, b (uint8 [N, 32]): canonical a*b, a^2 and
+    a^((p-5)/8), each uint8 [N, 32], in 5 x 51-bit limbs."""
+    return _fe_ops("fe_ops", a, b)
+
+
+def fe_ops_packed(a, b):
+    """``fe_ops`` in 10 x 25.5-bit limbs."""
+    return _fe_ops("fe_ops_packed", a, b)
+
+
+def fe_ops_f32(a, b):
+    """``fe_ops`` in 51 x 5-bit float limbs."""
+    return _fe_ops("fe_ops_f32", a, b)
+
+
+def comb_select(s, table):
+    """The comb's tensor-core selection alone: for packed s rows uint8
+    [N, 32] and the comb table uint8 [32, 128, 256], the entry each row
+    selects in each window, uint8 [N, 32, 128] (canonical X | Y | Z | T
+    of [s_w * 256^w]B)."""
+    n = s.shape[0]
+    dev = s.device
+    _check(s, "s", torch.uint8, (n, 32), dev)
+    _check(table, "table", torch.uint8, COMB_SHAPE, dev)
+    out = torch.empty((n, 32, 128), dtype=torch.uint8, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            err = library().tm_comb_select(s.data_ptr(), table.data_ptr(), out.data_ptr(), n,
+                                           _stream(dev))
+        _raise_on(err, "comb_select")
+        LAUNCHES["comb_select"] += 1
+    return out
 
 
 def decompress(enc):

@@ -120,6 +120,28 @@ def field_edge_values() -> list[int]:
             (1 << 255) - 19 + 5, (1 << 255) - 20, 1 << 254, (1 << 51) - 1, 1 << 51]
 
 
+def layout_edge_values() -> list[int]:
+    """255-bit values whose limbs sit at the packed and f32 layouts'
+    bounds: every even or every odd packed limb (26 / 25 bits) full, every
+    even or odd 5-bit f32 limb full, each limb width's top bit alone, and
+    p's neighbours in those limbs."""
+    weights = [(51 * i + 1) // 2 for i in range(10)]
+    widths = [26 - i % 2 for i in range(10)]
+    packed = [sum(((1 << widths[i]) - 1) << weights[i] for i in range(parity, 10, 2))
+              for parity in (0, 1)]
+    f32 = [sum(31 << (5 * i) for i in range(parity, 51, 2)) for parity in (0, 1)]
+    tops = [sum(1 << (weights[i] + widths[i] - 1) for i in range(10)),
+            sum(16 << (5 * i) for i in range(51))]
+    p = ref.P
+    return packed + f32 + tops + [p - (1 << 26), p - (1 << 25), p - 32, p - 20]
+
+
+def layout_edge_rows() -> np.ndarray:
+    """``layout_edge_values`` as uint8 [*, 32] rows."""
+    return np.stack([np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8)
+                     for v in layout_edge_values()])
+
+
 def field_rows(seed: int, n_random: int) -> np.ndarray:
     """uint8 [n_random + len(edges), 32]: random 255-bit values, then the
     edge values."""

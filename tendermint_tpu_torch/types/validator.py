@@ -4,7 +4,8 @@ Counterpart of ``tendermint_tpu/types/validator.py`` (reference
 types/validator_set.go VerifyCommit :662, VerifyCommitLight :720,
 VerifyCommitLightTrusting :776).  Each entry point collects the
 commit's signatures into ONE batch verifier call — one kernel launch on
-the card — and keeps the reference's accept/reject semantics, including
+the card, in the field layout ``TM_CUDA_FIELD_IMPL`` selects at that
+call — and keeps the reference's accept/reject semantics, including
 the in-order early exit of the light variants (a bad signature after
 the +2/3 cutoff is never consulted).  Every entry point takes
 ``device``: None runs on ``cuda``, ``"cpu"`` runs the plain version.

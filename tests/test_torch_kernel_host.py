@@ -1,7 +1,8 @@
 """The CUDA sources' device functions, built for the CPU by the host C++
-compiler (``csrc/ed25519_verify.cu`` and ``csrc/ed25519_rlc.cu``, with the
-shared ``csrc/ed25519_common.cuh``, compile as plain C++), against the
-plain PyTorch versions and the pure ZIP-215 reference; and the field
+compiler (every ``csrc/*.cu``, with the headers it includes, compiles as
+plain C++; the comb's tensor-core selection becomes a gather of the same
+byte table there), against the plain PyTorch versions and the pure
+ZIP-215 reference; and the field
 multiplies and squarings per row (and per block) that the kernels' bound
 is computed from (``ops/kernels.FIELD_OPS_PER_ROW``,
 ``FIELD_OPS_PER_BLOCK``), counted in that same code.  Integer arithmetic:
@@ -17,7 +18,9 @@ import torch
 
 from tendermint_tpu_torch import testkit
 from tendermint_tpu_torch.crypto import ed25519 as ref
-from tendermint_tpu_torch.ops import ed25519_torch, fe25519, kernels
+from tendermint_tpu_torch.ops import ed25519_torch, fe25519, fe25519_f32, fe25519_packed, kernels
+
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,6 +52,16 @@ def host_lib(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def packed_lib(tmp_path_factory):
+    return _host_build(tmp_path_factory, "ed25519_verify_packed")
+
+
+@pytest.fixture(scope="module")
+def f32_lib(tmp_path_factory):
+    return _host_build(tmp_path_factory, "ed25519_verify_f32")
+
+
+@pytest.fixture(scope="module")
 def rlc_lib(tmp_path_factory):
     lib = _host_build(tmp_path_factory, "ed25519_rlc")
     lib.tm_host_ed25519_rlc.restype = ctypes.c_int
@@ -61,18 +74,21 @@ def _p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _verify(lib, rows):
+def _verify(lib, rows, impl="int64", base_mxu=False):
+    """The host build of the verify kernel of (impl, base_mxu), on the
+    table the card's kernel reads."""
     pub, r, s, k, valid = (np.ascontiguousarray(a) for a in rows)
-    table = kernels.table_from_points(ref.base_point_table()).astype(np.uint64)
+    table = np.ascontiguousarray(ed25519_torch.kernel_table(impl, base_mxu, CPU).numpy())
     out = np.zeros(len(valid), dtype=np.uint8)
-    lib.tm_host_ed25519_verify(_p(pub), _p(r), _p(s), _p(k), _p(valid.astype(np.uint8)),
-                               _p(table), _p(out), ctypes.c_int(len(valid)))
+    getattr(lib, f"tm_host_{kernels.VERIFY_KERNELS[(impl, base_mxu)]}")(
+        _p(pub), _p(r), _p(s), _p(k), _p(valid.astype(np.uint8)), _p(table), _p(out),
+        ctypes.c_int(len(valid)))
     return out.astype(bool)
 
 
-def _fe_ops(lib, a, b):
+def _fe_ops(lib, a, b, kernel="fe_ops"):
     outs = [np.zeros_like(a) for _ in range(3)]
-    lib.tm_host_fe_ops(_p(a), _p(b), *map(_p, outs), ctypes.c_int(len(a)))
+    getattr(lib, f"tm_host_{kernel}")(_p(a), _p(b), *map(_p, outs), ctypes.c_int(len(a)))
     return outs
 
 
@@ -154,20 +170,26 @@ def _random_lanes(seed: int, n: int) -> np.ndarray:
     return np.array([[kernels.limbs51(c) for c in p] for p in pts], dtype=np.uint64)
 
 
+_IMPL_OF = {name: key for key, name in kernels.VERIFY_KERNELS.items()}
+
+
 @pytest.mark.parametrize("kernel", sorted(kernels.FIELD_OPS_PER_ROW))
-def test_field_op_counts_per_row_match_the_kernel_source(host_lib, rlc_lib, kernel):
+def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f32_lib, rlc_lib,
+                                                         kernel):
     """One row of each kernel, counted; no loop depends on the data, so
     one row's count is every row's.  ed25519_rlc is counted on 1 and on
     65 rows, which fixes both its per-row and its per-block term;
     rlc_fold on 157 lanes, the commit-10k call's."""
-    _counts(host_lib)
-    _counts(rlc_lib)
-    if kernel == "ed25519_verify":
+    lib = {"51": host_lib, "packed": packed_lib, "f32": f32_lib}[kernels.layout(kernel)]
+    for each in (host_lib, packed_lib, f32_lib, rlc_lib):
+        _counts(each)
+    if kernel in _IMPL_OF:
         pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
-        assert _verify(host_lib, ed25519_torch.prepare_batch([pub], [msg], [sig])).all()
-    elif kernel == "fe_ops":
+        rows = ed25519_torch.prepare_batch([pub], [msg], [sig])
+        assert _verify(lib, rows, *_IMPL_OF[kernel]).all()
+    elif kernel.startswith("fe_ops"):
         row = testkit.field_rows(seed=7, n_random=1)[:1]
-        _fe_ops(host_lib, row, row)
+        _fe_ops(lib, row, row, kernel)
     elif kernel == "decompress":
         _decompress(host_lib, testkit.decompress_rows(seed=8, n_random=0)[:1])
     elif kernel == "ed25519_rlc":
@@ -184,7 +206,7 @@ def test_field_op_counts_per_row_match_the_kernel_source(host_lib, rlc_lib, kern
         assert len(_fold(rlc_lib, _random_lanes(13, 157))) == 79
         assert _counts(rlc_lib) == kernels.field_ops(kernel, 157) == (78 * 9, 0)
         return
-    assert _counts(host_lib) == kernels.FIELD_OPS_PER_ROW[kernel] == kernels.field_ops(kernel, 1)
+    assert _counts(lib) == kernels.FIELD_OPS_PER_ROW[kernel] == kernels.field_ops(kernel, 1)
 
 
 @pytest.fixture(scope="module")
@@ -245,3 +267,56 @@ def test_verify_rows_on_a_mixed_batch(host_lib):
     got = _verify(host_lib, ed25519_torch.prepare_batch(pubs, msgs, sigs))
     assert got.tolist() == want
     assert all(any(want[i:i + 8]) and not all(want[i:i + 8]) for i in range(0, 72, 8))
+
+
+@pytest.fixture(scope="module")
+def libs(host_lib, packed_lib, f32_lib):
+    return {"int64": host_lib, "packed": packed_lib, "f32": f32_lib}
+
+
+@pytest.mark.parametrize("impl,base_mxu", sorted(kernels.VERIFY_KERNELS))
+def test_every_verify_kernel_matches_the_reference(libs, impl, base_mxu):
+    """Each layout's kernel, and the comb, on the gauntlet and on a mixed
+    batch of signed votes: the reference's verdicts."""
+    cases = testkit.adversarial_cases(seed=0)
+    keys = testkit.validator_keys(seed=17, n=40)
+    msgs = [b"layout vote %d" % i for i in range(40)]
+    mixed = testkit.mixed_batch([k.pub_key().bytes_() for k in keys], msgs,
+                                [k.sign(m) for k, m in zip(keys, msgs)], seed=18)
+    for pubs, msgs, sigs in (tuple([c[i] for c in cases] for i in range(3)), mixed[:3]):
+        want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+        got = _verify(libs[impl], ed25519_torch.prepare_batch(pubs, msgs, sigs), impl, base_mxu)
+        assert got.tolist() == want
+        assert any(want) and not all(want)
+
+
+@pytest.mark.parametrize("module,lib_name", [(fe25519_packed, "packed"), (fe25519_f32, "f32")])
+def test_layout_fe_ops_match_their_plain_versions(libs, module, lib_name):
+    """fe_ops_packed and fe_ops_f32 on random values, the field's edge
+    values and the layouts' edge values: the plain versions' bytes."""
+    a = np.concatenate([testkit.field_rows(seed=19, n_random=48), testkit.layout_edge_rows()])
+    b = np.ascontiguousarray(np.roll(a, 7, axis=0))
+    want = module.fe_ops(torch.from_numpy(a), torch.from_numpy(b))
+    for got, w in zip(_fe_ops(libs[lib_name], a, b, f"fe_ops_{lib_name}"), want):
+        assert np.array_equal(got, w.numpy())
+
+
+def test_comb_selection_matches_the_plain_one_hot_product(host_lib):
+    """The host build's comb_select (the gather that stands in for the
+    tensor cores) on every digit in every window and on random rows: the
+    plain one-hot product, and the entries [j * 256^w]B themselves."""
+    table = kernels.comb_table(CPU)
+    every = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 32, axis=1)
+    rand = np.random.default_rng(20).integers(0, 256, size=(40, 32), dtype=np.uint8)
+    outs = []
+    for s in (every, rand):
+        out = np.zeros((len(s), 32, 128), dtype=np.uint8)
+        host_lib.tm_host_comb_select(_p(np.ascontiguousarray(s)), _p(table.numpy()), _p(out),
+                                     ctypes.c_int(len(s)))
+        assert np.array_equal(out, ed25519_torch.comb_select_plain(torch.from_numpy(s),
+                                                                   table).numpy())
+        outs.append(out)
+    rows = ref.base_point_table256()
+    for w, j in ((0, 1), (1, 255), (31, 128), (17, 0)):
+        entry = b"".join((c % ref.P).to_bytes(32, "little") for c in rows[w][j])
+        assert outs[0][j, w].tobytes() == entry

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here needs a CUDA device and skips without one; on the
-card run them with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+card run them with ``python -m pytest --noconftest -m cuda
+tests/test_torch_kernels.py``.
 Integer arithmetic: every comparison is exact."""
 
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 
 from tendermint_tpu_torch import testkit
 from tendermint_tpu_torch.crypto import ed25519 as ref
-from tendermint_tpu_torch.ops import ed25519_torch, fe25519, kernels
+from tendermint_tpu_torch.ops import ed25519_torch, fe25519, fe25519_f32, fe25519_packed, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -68,9 +69,12 @@ def test_verify_commit_on_the_card(cuda):
     keys = testkit.validator_keys(seed=3, n=16)
     vals = testkit.validator_set(keys)
     commit = testkit.signed_commit(keys, vals, height=7)
-    before = kernels.LAUNCHES["ed25519_verify"]
+    # the kernel of the layout TM_CUDA_FIELD_IMPL resolves to (auto: the
+    # golden gate runs here, before the count)
+    kernel = kernels.VERIFY_KERNELS[(ed25519_torch.default_impl(cuda), False)]
+    before = kernels.LAUNCHES[kernel]
     vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
-    assert kernels.LAUNCHES["ed25519_verify"] == before + 1
+    assert kernels.LAUNCHES[kernel] == before + 1
     commit.signatures[5].signature = bytes(64)
     with pytest.raises(ValueError, match=r"wrong signature \(#5\)"):
         vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
@@ -134,11 +138,90 @@ def test_verify_batch_rlc_on_the_card(cuda):
     cases = testkit.adversarial_cases(seed=0)
     pubs, msgs, sigs = ([c[i] for c in cases] for i in range(3))
     want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    fallback = kernels.VERIFY_KERNELS[(ed25519_torch.default_impl(cuda), False)]
     before = dict(kernels.LAUNCHES), dict(ed25519_torch.RLC_STATS)
     assert ed25519_torch.verify_batch_rlc(pubs, msgs, sigs).tolist() == want
     assert kernels.LAUNCHES["ed25519_rlc"] == before[0]["ed25519_rlc"] + 1
-    assert kernels.LAUNCHES["ed25519_verify"] == before[0]["ed25519_verify"] + 1
+    assert kernels.LAUNCHES[fallback] == before[0][fallback] + 1
     assert ed25519_torch.RLC_STATS["fallback"] == before[1]["fallback"] + 1
     honest = [i for i, ok in enumerate(want) if ok]
     got = ed25519_torch.verify_batch_rlc(*([col[i] for i in honest] for col in (pubs, msgs, sigs)))
     assert got.all() and ed25519_torch.RLC_STATS["pass"] == before[1]["pass"] + 1
+
+
+# ---------------------------------------------------------------------------
+# The packed and f32 layouts and the comb
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl,base_mxu", sorted(kernels.VERIFY_KERNELS))
+def test_every_verify_kernel_matches_plain_and_reference(cuda, impl, base_mxu):
+    """The gauntlet and a mixed batch across blocks: kernel = plain =
+    reference, one launch each."""
+    name = kernels.VERIFY_KERNELS[(impl, base_mxu)]
+    cases = testkit.adversarial_cases(seed=0)
+    keys = testkit.validator_keys(seed=10, n=200)
+    msgs = [b"vote %d" % i for i in range(200)]
+    mixed = testkit.mixed_batch([k.pub_key().bytes_() for k in keys], msgs,
+                                [k.sign(m) for k, m in zip(keys, msgs)], seed=11)
+    for pubs, msgs, sigs in (([c[0] for c in cases], [c[1] for c in cases],
+                              [c[2] for c in cases]), mixed[:3]):
+        want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+        rows = ed25519_torch.rows_to_device(ed25519_torch.prepare_batch(pubs, msgs, sigs), cuda)
+        before = kernels.LAUNCHES[name]
+        got = ed25519_torch.verify_rows(*rows, impl=impl, base_mxu=base_mxu)
+        assert kernels.LAUNCHES[name] == before + 1
+        assert got.cpu().tolist() == want
+        plain = ed25519_torch.verify_core(*rows, impl=impl, base_mxu=base_mxu)
+        assert plain.cpu().tolist() == want
+
+
+@pytest.mark.parametrize("module", [fe25519_packed, fe25519_f32])
+def test_layout_fe_ops_kernels_match_plain(cuda, module):
+    rows = np.concatenate([testkit.field_rows(seed=12, n_random=512), testkit.layout_edge_rows()])
+    a = torch.from_numpy(rows).to(cuda)
+    b = a.roll(5, dims=0).contiguous()
+    name = "fe_ops_packed" if module is fe25519_packed else "fe_ops_f32"
+    before = kernels.LAUNCHES[name]
+    got = module.fe_ops_rows(a, b)
+    assert kernels.LAUNCHES[name] == before + 1
+    for g, w in zip(got, module.fe_ops(a, b)):
+        assert torch.equal(g, w)
+
+
+def test_comb_select_kernel_covers_every_window_and_digit(cuda):
+    """Row j selects digit j in every window: all 32 x 256 entries, each
+    the table's bytes, as the plain one-hot product gives them."""
+    s = torch.arange(256, dtype=torch.uint8, device=cuda)[:, None].expand(256, 32).contiguous()
+    got = ed25519_torch.comb_select_rows(s)
+    table = kernels.comb_table(cuda)
+    assert torch.equal(got, table.permute(2, 0, 1))
+    assert torch.equal(got, ed25519_torch.comb_select_plain(s, table))
+    rng = np.random.default_rng(13)
+    s = torch.from_numpy(rng.integers(0, 256, size=(77, 32), dtype=np.uint8)).to(cuda)
+    assert torch.equal(ed25519_torch.comb_select_rows(s), ed25519_torch.comb_select_plain(s, table))
+
+
+def test_golden_gates_pass_on_the_card(cuda, monkeypatch):
+    monkeypatch.setattr(ed25519_torch, "OPTIN_STATE", {})
+    assert ed25519_torch._optin_safe("impl", "packed", cuda)
+    assert ed25519_torch._optin_safe("base_mxu", "int64", cuda)
+    assert ed25519_torch._optin_safe("base_mxu", "f32", cuda)
+    monkeypatch.delenv("TM_CUDA_FIELD_IMPL", raising=False)
+    assert ed25519_torch.default_impl(cuda) == "packed"
+
+
+@pytest.mark.parametrize("impl,mxu,kernel", [("packed", "0", "ed25519_verify_packed"),
+                                              ("f32", "0", "ed25519_verify_f32"),
+                                              ("f32", "1", "ed25519_verify_f32_comb"),
+                                              ("int64", "1", "ed25519_verify_comb"),
+                                              ("int64", "0", "ed25519_verify")])
+def test_verify_commit_launches_the_chosen_kernel_once(cuda, monkeypatch, impl, mxu, kernel):
+    monkeypatch.setenv("TM_CUDA_FIELD_IMPL", impl)
+    monkeypatch.setenv("TM_CUDA_BASE_MXU", mxu)
+    keys = testkit.validator_keys(seed=3, n=16)
+    vals = testkit.validator_set(keys)
+    commit = testkit.signed_commit(keys, vals, height=7)
+    vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)  # gates run here
+    kernels.reset_launches()
+    vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {kernel: 1}

@@ -26,7 +26,7 @@ def test_every_tm_cuda_name_is_registered():
     for path in _port_files():
         for name in re.findall(r"\bTM_CUDA_[A-Z0-9_]+", path.read_text()):
             seen.setdefault(name, path.relative_to(ROOT).as_posix())
-    assert "TM_CUDA_RLC" in seen
+    assert {"TM_CUDA_RLC", "TM_CUDA_FIELD_IMPL", "TM_CUDA_BASE_MXU"} <= set(seen)
     assert {n: p for n, p in seen.items() if n not in knobs.KNOWN} == {}
 
 
@@ -41,6 +41,12 @@ def test_read_resolves_at_every_call(monkeypatch):
     assert knobs.read("TM_CUDA_RLC") == "0"
     monkeypatch.setenv("TM_CUDA_RLC", "1")
     assert knobs.read("TM_CUDA_RLC") == "1"
+    for name, default, value in (("TM_CUDA_FIELD_IMPL", "auto", "packed"),
+                                 ("TM_CUDA_BASE_MXU", "0", "1")):
+        monkeypatch.delenv(name, raising=False)
+        assert knobs.read(name) == default
+        monkeypatch.setenv(name, value)
+        assert knobs.read(name) == value
     with pytest.raises(KeyError, match="TM_CUDA_MADE_UP"):
         knobs.read("TM_CUDA_MADE_UP")
 

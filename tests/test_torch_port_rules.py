@@ -50,7 +50,14 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(no_cuda):
+@pytest.mark.parametrize("impl", [None, "auto", "int64", "packed", "f32"])
+def test_entry_points_raise_without_cuda(no_cuda, monkeypatch, impl):
+    """Whatever TM_CUDA_FIELD_IMPL (and TM_CUDA_BASE_MXU) say."""
+    if impl is None:
+        monkeypatch.delenv("TM_CUDA_FIELD_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("TM_CUDA_FIELD_IMPL", impl)
+        monkeypatch.setenv("TM_CUDA_BASE_MXU", "1")
     pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
     with pytest.raises(RuntimeError, match="CUDA"):
         ed25519_torch.verify_batch([pub], [msg], [sig])
@@ -82,6 +89,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.ed25519_rlc(rows, rows, rows, rows[:, :16].contiguous(), valid)
     with pytest.raises(ValueError, match="expected a tensor on"):
         kernels.rlc_fold(torch.zeros((130, 4, 5), dtype=torch.int64))
+    for impl, base_mxu in kernels.VERIFY_KERNELS:
+        cpu_table = ed25519_torch.kernel_table(impl, base_mxu, torch.device("cpu"))
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            kernels.verify(impl, base_mxu)(rows, rows, rows, rows, valid, cpu_table)
+    for wrapper in (kernels.fe_ops_packed, kernels.fe_ops_f32):
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            wrapper(rows, rows)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.comb_select(rows, torch.zeros(kernels.COMB_SHAPE, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="no verify kernel"):
+        kernels.verify("packed", True)
     assert kernels.LAUNCHES == before
 
 
@@ -121,7 +139,8 @@ def test_library_name_hashes_headers_and_builds_only_cu(tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
-    assert [p.name for p in kernels._sources()] == ["ed25519_rlc.cu", "ed25519_verify.cu"]
+    assert [p.name for p in kernels._sources()] == [
+        "ed25519_rlc.cu", "ed25519_verify.cu", "ed25519_verify_f32.cu", "ed25519_verify_packed.cu"]
     first = kernels.library_path()
     assert first == kernels.library_path()
     header = csrc / "ed25519_common.cuh"
