@@ -90,14 +90,16 @@ class CPUBatchVerifier(_BaseBatch):
 class TorchBatchVerifier(_BaseBatch):
     """One verify kernel launch verifies the entire batch.
 
-    ``TM_CUDA_FIELD_IMPL`` and ``TM_CUDA_BASE_MXU``, read at every call
-    (``ed25519_torch.default_impl``, ``_resolve_optin``), choose the
-    kernel: the field layout and whether [s]B takes the tensor-core comb.
-    ``TM_CUDA_RLC=1``, read at every call, routes the batch through the
-    RLC batch equation (``ed25519_torch.verify_batch_rlc``: one
-    ``ed25519_rlc`` launch, and the per-row kernel of the chosen layout
-    only if the equation fails), the counterpart of ``TM_TPU_RLC``.  The
-    verdicts are the same either way.
+    ``TM_CUDA_FIELD_IMPL``, ``TM_CUDA_FE_MXU`` and ``TM_CUDA_BASE_MXU``,
+    read at every call (``ed25519_torch.default_impl``,
+    ``_resolve_optin``), choose the kernel: the field layout, whether f32
+    multiplies on the tensor cores and whether [s]B takes the tensor-core
+    comb.  ``TM_CUDA_RLC=1``, read at every call, routes the batch through
+    the RLC batch equation (``ed25519_torch.verify_batch_rlc``: one launch
+    of the RLC kernel of the layout and multiply resolved for this call,
+    and the per-row kernel of the same choice only if the equation fails),
+    the counterpart of ``TM_TPU_RLC``.  The verdicts are the same either
+    way.
 
     ``device`` None means ``cuda``; with no CUDA device that raises
     rather than running on the CPU.  ``device="cpu"`` runs the kernels'

@@ -1,7 +1,8 @@
 // [s]B by a w=8 comb whose per-window selection runs on the tensor cores,
 // for Hopper (sm_90a): included by ed25519_verify.cu (5 x 51-bit limbs,
 // kernel ed25519_verify_comb) and ed25519_verify_f32.cu (51 x 5-bit float
-// limbs, kernel ed25519_verify_f32_comb), and the part kernel comb_select.
+// limbs, kernels ed25519_verify_f32_comb and, with the tensor-core fe_mul,
+// ed25519_verify_f32_mma_comb), and the part kernel comb_select.
 //
 // Replaces `_Core._scalarmul_base_mxu` of tendermint_tpu/ops/ed25519_jax.py
 // (:328): the signature's 32 s bytes are its radix-256 digits; window w
@@ -162,8 +163,10 @@ static __global__ void verify_comb_kernel(const uint8_t* __restrict__ pub,
     const bool live = i < n;
     const size_t o = (size_t)(live ? i : 0) * 32;
     point<E> sb = scalarmul_base_comb<E>(table, s + o, live, tiles[threadIdx.x / 32]);
-    if (!live) return;  // only after the warp's last mma
-    out[i] = verify_row_from_base(sb, pub + o, r + o, k + o, valid[i] != 0) ? 1 : 0;
+    // a row past N runs to the end as a dummy (row 0): a collective fe_mul
+    // (collective_mul) needs every lane
+    const bool ok = verify_row_from_base(sb, pub + o, r + o, k + o, valid[live ? i : 0] != 0);
+    if (live) out[i] = ok ? 1 : 0;
 }
 
 static __global__ void comb_select_kernel(const uint8_t* __restrict__ s,

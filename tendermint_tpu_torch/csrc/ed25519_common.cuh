@@ -1,7 +1,8 @@
 // Field and point arithmetic of GF(2^255 - 19) and edwards25519 in 5 x
 // 51-bit limbs, and the field-agnostic curve pipeline every verify kernel
-// of this directory is built from (ed25519_verify.cu, ed25519_rlc.cu,
-// ed25519_verify_packed.cu, ed25519_verify_f32.cu).
+// of this directory is built from (ed25519_verify.cu, ed25519_rlc.cuh,
+// ed25519_verify_packed.cu, ed25519_verify_f32.cu,
+// ed25519_verify_f32_mma.cu).
 //
 // Replaces the device functions of tendermint_tpu/ops/fe25519.py (the
 // 15 x 17-bit int64 field of the JAX package) and `_Core.decompress`,
@@ -29,6 +30,11 @@
 // each kernel source has a host build that runs the same arithmetic on
 // the CPU; with TM_COUNT_FIELD_OPS that build counts the field
 // multiplies and squarings (tm_take_field_op_counts).
+//
+// The pipeline calls every field operation of a row unconditionally, for
+// any input: decompress selects its square root, the ladders select table
+// entries by index, and the verdict ANDs flags computed before it.  So the
+// same code serves a warp-collective fe_mul (collective_mul).
 
 #ifndef TM_ED25519_COMMON_CUH
 #define TM_ED25519_COMMON_CUH
@@ -40,7 +46,7 @@
 #include <cuda_runtime.h>
 #define TM_DEV __device__ __forceinline__
 #define TM_DEVM __device__ __forceinline__  // a static member function
-#define TM_NOINLINE __device__ __noinline__
+#define TM_NOINLINE static __device__ __noinline__  // one copy per source
 #else
 #define TM_DEV static inline
 #define TM_DEVM inline
@@ -74,6 +80,17 @@ typedef point<fe> pt;
 // of a 32-byte little-endian encoding (its low 255 bits).
 template <class E>
 struct field;
+
+// Whether E's fe_mul is warp-collective (the tensor-core product of
+// fe_f32_mma.cuh): every lane of a warp must then call every fe_mul
+// together, so a kernel on E runs rows past N as dummy rows to the end and
+// keeps each field operation out of data-dependent branches (a select is
+// fine).  The pipeline below never branches around a multiply; rlc_fold,
+// which adds on part of a warp, asserts that its E is not collective.
+template <class E>
+struct collective_mul {
+    enum { value = 0 };
+};
 
 // ---------------------------------------------------------------------------
 // Constants (5 x 51-bit limbs)
@@ -505,16 +522,19 @@ TM_DEV void fe_ops_row(const uint8_t* a_enc, const uint8_t* b_enc, uint8_t* out_
 
 static int blocks_for(int n) { return (n + TM_THREADS - 1) / TM_THREADS; }
 
+// A thread past N runs row 0 as a dummy to the end and stores nothing, so
+// that every lane of a warp takes part in a collective fe_mul.
 template <class E>
 static __global__ void verify_kernel(const uint8_t* __restrict__ pub, const uint8_t* __restrict__ r,
                                      const uint8_t* __restrict__ s, const uint8_t* __restrict__ k,
                                      const uint8_t* __restrict__ valid,
                                      const typename field<E>::limb* __restrict__ table,
                                      uint8_t* __restrict__ out, int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    size_t o = (size_t)i * 32;
-    out[i] = verify_row<E>(pub + o, r + o, s + o, k + o, valid[i] != 0, table) ? 1 : 0;
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = i < n;
+    const size_t o = (size_t)(live ? i : 0) * 32;
+    const bool ok = verify_row<E>(pub + o, r + o, s + o, k + o, valid[live ? i : 0] != 0, table);
+    if (live) out[i] = ok ? 1 : 0;
 }
 
 template <class E>

@@ -6,8 +6,9 @@
 // TM_TPU_FE_MXU=0 configuration), the field and point arithmetic of
 // tendermint_tpu/ops/fe25519_f32.py it is built from, and, with
 // `base_mxu`, its `_scalarmul_base_mxu` (:328, base_comb.cuh).  The curve
-// pipeline is ed25519_common.cuh's, instantiated on the f32 field.  Three
-// kernels:
+// pipeline is ed25519_common.cuh's, instantiated on the f32 field with
+// the FFMA multiply; ed25519_verify_f32_mma.cu has the same kernels with
+// the tensor-core one (TM_TPU_FE_MXU's configuration).  Three kernels:
 //
 //   ed25519_verify_f32       one verdict per signature.
 //   ed25519_verify_f32_comb  the same with [s]B by the tensor-core comb

@@ -32,6 +32,11 @@ KNOBS = (
          "1 computes [s]B by the w=8 comb with its selection on the tensor cores (int64 "
          "and f32 layouts, once it passes the golden batch); the counterpart of "
          "TM_TPU_BASE_MXU"),
+    Knob("TM_CUDA_FE_MXU", "auto",
+         "the f32 layout's fe_mul on the tensor cores (integer mma over split products): "
+         "1 on, 0 off, auto (off on the CPU, on for cuda); taken only once it passes the "
+         "golden batch, and it puts f32 first on auto's ladder; the counterpart of "
+         "TM_TPU_FE_MXU"),
 )
 KNOWN = {k.name: k for k in KNOBS}
 

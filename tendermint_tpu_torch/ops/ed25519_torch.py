@@ -19,24 +19,28 @@ Field layouts (``impl``, as in the JAX package): "int64" (kernel
 limbs of ``ops/fe25519.py``), "packed" (``ed25519_verify_packed``, 10 x
 25.5-bit limbs, ``ops/fe25519_packed.py``) and "f32"
 (``ed25519_verify_f32``, 51 signed 5-bit float limbs,
-``ops/fe25519_f32.py``).  With the comb (``base_mxu``, int64 and f32
-only) [s]B is a w=8 comb whose per-window selection is a one-hot x table
-product on the tensor cores (kernels ``ed25519_verify_comb`` and
-``ed25519_verify_f32_comb``).  ``verify_batch`` picks the layout per call
-(``TM_CUDA_FIELD_IMPL``, default ``auto``) and the comb
-(``TM_CUDA_BASE_MXU``) behind the golden-batch gate below.  On a CUDA
-tensor ``verify_rows`` launches the kernel; on a CPU tensor it runs
-``verify_core``, the plain version.  The kernels take any N, so there is
-no bucket ladder.
+``ops/fe25519_f32.py``).  f32 multiplies on the FP32 pipe, or, with
+``fe_mxu`` (the JAX ``TM_TPU_FE_MXU``), as an integer mma on the tensor
+cores (kernel ``ed25519_verify_f32_mma``; plain version
+``fe25519_f32.MXU``).  With the comb (``base_mxu``, int64 and f32 only)
+[s]B is a w=8 comb whose per-window selection is a one-hot x table
+product on the tensor cores (kernels ``ed25519_verify_comb``,
+``ed25519_verify_f32_comb`` and ``ed25519_verify_f32_mma_comb``).
+``verify_batch`` picks the layout per call (``TM_CUDA_FIELD_IMPL``,
+default ``auto``), the multiply (``TM_CUDA_FE_MXU``, default ``auto``)
+and the comb (``TM_CUDA_BASE_MXU``) behind the golden-batch gate below.
+On a CUDA tensor ``verify_rows`` launches the kernel; on a CPU tensor it
+runs ``verify_core``, the plain version.  The kernels take any N, so
+there is no bucket ladder.
 
 The RLC path (``verify_batch_rlc``, counterpart of the JAX package's
 function of that name) checks the whole batch with one cofactored
-random-linear-combination equation: the ``ed25519_rlc`` and ``rlc_fold``
-kernels (or ``verify_core_rlc``, their plain version) sum the rows'
-terms into lanes, and the host finishes the equation in big-int
-(``finalize_rlc``).  A batch that fails it is decided row by row by
-``verify_rows`` on the rows already prepared, so the verdicts are always
-the per-row ones.
+random-linear-combination equation, in the call's layout and multiply:
+the RLC kernel of that pair and the fold of that layout (or
+``verify_core_rlc``, their plain version) sum the rows' terms into
+lanes, and the host finishes the equation in big-int (``finalize_rlc``).
+A batch that fails it is decided row by row by ``verify_rows`` on the
+rows already prepared, so the verdicts are always the per-row ones.
 """
 
 from __future__ import annotations
@@ -96,13 +100,14 @@ def _select16(digit: torch.Tensor, tbl: list):
 
 
 class _Core:
-    """The verify pipeline on one field layout (``fe``: ``ops/fe25519``,
-    ``ops/fe25519_packed`` or ``ops/fe25519_f32``), the counterpart of
-    the JAX package's ``_Core(fe)``."""
+    """The verify and RLC pipelines on one field layout (``fe``:
+    ``ops/fe25519``, ``ops/fe25519_packed``, ``ops/fe25519_f32``, or with
+    `fe_mxu` ``fe25519_f32.MXU``, f32 with the matrix-unit fe_mul), the
+    counterpart of the JAX package's ``_Core(fe)``."""
 
-    def __init__(self, impl: str):
+    def __init__(self, impl: str, fe_mxu: bool = False):
         self.impl = impl
-        self.fe = _FIELDS[impl]
+        self.fe = fe25519_f32.MXU if fe_mxu else _FIELDS[impl]
 
     def decompress(self, y: torch.Tensor, sign: torch.Tensor):
         """Permissive (ZIP-215) decompression.
@@ -191,12 +196,57 @@ class _Core:
         q8 = f.pt_dbl_n(q, 3)
         return valid & ok_a & ok_r & f.pt_is_identity(q8)
 
+    def table16(self, base: fe.Pt) -> list:
+        """[O, P, 2P, ..., 15P] from a [N]-point (14 adds)."""
+        tbl = [self.fe.pt_identity(base.x.shape[:-1], base.x.device), base]
+        for _ in range(14):
+            tbl.append(self.fe.pt_add(tbl[-1], base))
+        return tbl
+
+    def reduce_to_lanes(self, p: fe.Pt, target: int) -> fe.Pt:
+        """Fold a [N]-point to [kernels.reduced_width(N, target)] by pairwise
+        addition, lane i + m into lane i; an odd last lane moves to m.  The
+        same pairing as the JAX package's and as the folds."""
+        n = p.x.shape[0]
+        while n > target:
+            m = n // 2
+            s = self.fe.pt_add(fe.Pt(*(c[:m] for c in p.astuple())),
+                               fe.Pt(*(c[m:2 * m] for c in p.astuple())))
+            if n % 2:
+                s = fe.Pt(*(torch.cat([a, c[2 * m:]]) for a, c in zip(s.astuple(), p.astuple())))
+            p, n = s, m + n % 2
+        return p
+
+    @torch.inference_mode()
+    def verify_core_rlc(self, pub_rows, r_rows, zk_rows, z_rows, valid, reduce_lanes):
+        """Plain version of the RLC kernels in this layout; see the
+        module-level ``verify_core_rlc``."""
+        f = self.fe
+        a_pt, ok_a = self.decompress_rows(pub_rows)
+        r_pt, ok_r = self.decompress_rows(r_rows)
+        prevalid = valid & ok_a & ok_r
+        zk_digits = torch.where(prevalid[..., None], _nibbles_of(zk_rows), 0)
+        z_digits = torch.where(prevalid[..., None], _nibbles_of(z_rows), 0)
+        tbl_a = self.table16(f.pt_neg(a_pt))
+        tbl_r = self.table16(f.pt_neg(r_pt))
+        lanes = kernels.reduced_width(pub_rows.shape[0], reduce_lanes)
+        acc = f.pt_identity((lanes,), pub_rows.device)
+        # windows 63..32 take only the z*k digits; z has 32 digits
+        for w in range(NWINDOWS - 1, -1, -1):
+            sel = _select16(zk_digits[..., w], tbl_a)
+            if w < 32:
+                sel = f.pt_add(sel, _select16(z_digits[..., w], tbl_r))
+            acc = f.pt_add(f.pt_dbl_n(acc, 4), self.reduce_to_lanes(sel, reduce_lanes))
+        return self.reduce_to_lanes(acc, kernels.RLC_MAX_LANES), prevalid
+
 
 @functools.cache
-def _core(impl: str) -> _Core:
+def _core(impl: str, fe_mxu: bool = False) -> _Core:
     if impl not in IMPLS:
         raise ValueError(f"unknown field impl {impl!r}; expected one of {IMPLS}")
-    return _Core(impl)
+    if fe_mxu and impl != "f32":
+        raise ValueError(f"the matrix-unit fe_mul is an f32 multiply, not {impl!r}'s")
+    return _Core(impl, fe_mxu)
 
 
 @functools.cache
@@ -214,10 +264,11 @@ def _fixed_base_tables(device: torch.device, impl: str = "int64") -> tuple[torch
     return tuple(torch.as_tensor(c, device=device) for c in coords)
 
 
-def verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64", base_mxu=False):
-    """Plain version of the verify kernel of `impl` (and of its comb
-    variant with `base_mxu`); bool [N]."""
-    return _core(impl).verify_core(pub_rows, r_rows, s_rows, k_rows, valid, base_mxu)
+def verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64", base_mxu=False,
+                fe_mxu=False):
+    """Plain version of the verify kernel of (`impl`, `base_mxu`,
+    `fe_mxu`); bool [N]."""
+    return _core(impl, fe_mxu).verify_core(pub_rows, r_rows, s_rows, k_rows, valid, base_mxu)
 
 
 # ---------------------------------------------------------------------------
@@ -227,72 +278,48 @@ def verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64", base_mxu=
 REDUCE_LANES = 2048  # the JAX program's accumulator width (TM_TPU_RLC_LANES default)
 
 
-def _table16(base: fe.Pt) -> list:
-    """[O, P, 2P, ..., 15P] from a [N]-point (14 adds)."""
-    tbl = [fe.pt_identity(base.x.shape[:-1], base.x.device), base]
-    for _ in range(14):
-        tbl.append(fe.pt_add(tbl[-1], base))
-    return tbl
+def _pt_reduce_to_lanes(p: fe.Pt, target: int, impl: str = "int64") -> fe.Pt:
+    """``_Core.reduce_to_lanes`` of `impl`'s layout: the plain version of
+    the folds."""
+    return _core(impl).reduce_to_lanes(p, target)
 
 
-def _pt_reduce_to_lanes(p: fe.Pt, target: int) -> fe.Pt:
-    """Fold a [N]-point to [kernels.reduced_width(N, target)] by pairwise
-    addition, lane i + m into lane i; an odd last lane moves to m.  The
-    same pairing as the JAX package's and as ``rlc_fold``."""
-    n = p.x.shape[0]
-    while n > target:
-        m = n // 2
-        s = fe.pt_add(fe.Pt(*(c[:m] for c in p.astuple())),
-                      fe.Pt(*(c[m:2 * m] for c in p.astuple())))
-        if n % 2:
-            s = fe.Pt(*(torch.cat([a, c[2 * m:]]) for a, c in zip(s.astuple(), p.astuple())))
-        p, n = s, m + n % 2
-    return p
-
-
-@torch.inference_mode()
-def verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, reduce_lanes=REDUCE_LANES):
-    """Plain version of the ``ed25519_rlc`` + ``rlc_fold`` kernels, shaped
-    as the JAX package's ``_Core.verify_core_rlc``:
+def verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, reduce_lanes=REDUCE_LANES,
+                    impl="int64", fe_mxu=False):
+    """Plain version of the RLC kernel of (`impl`, `fe_mxu`) and its fold,
+    shaped as the JAX package's ``_Core.verify_core_rlc`` in that layout:
 
         [8]( [c]B - sum_i [z_i k_i](A_i) - sum_i [z_i](R_i) ) == O
 
     Inputs: pub/r/zk rows uint8 [N, 32], z rows uint8 [N, 16] (the 128-bit
-    z_i), valid bool [N].  Returns (lanes, prevalid): a [P]-point whose
-    lanes sum to sum_i [z_i k_i](-A_i) + [z_i](-R_i), P =
-    reduced_width(N, 128), the JAX program's lanes point for point; and
+    z_i), valid bool [N].  Returns (lanes, prevalid): a [P]-point in the
+    layout's limbs whose lanes sum to sum_i [z_i k_i](-A_i) + [z_i](-R_i),
+    P = reduced_width(N, 128), the JAX program's lanes point for point; and
     prevalid = valid & A, R on the curve.  A row that is not prevalid
     selects digit 0, the identity, in every window.  The host finishes
     the equation (``finalize_rlc``)."""
-    a_pt, ok_a = _core("int64").decompress_rows(pub_rows)
-    r_pt, ok_r = _core("int64").decompress_rows(r_rows)
-    prevalid = valid & ok_a & ok_r
-    zk_digits = torch.where(prevalid[..., None], _nibbles_of(zk_rows), 0)
-    z_digits = torch.where(prevalid[..., None], _nibbles_of(z_rows), 0)
-    tbl_a = _table16(fe.pt_neg(a_pt))
-    tbl_r = _table16(fe.pt_neg(r_pt))
-    lanes = kernels.reduced_width(pub_rows.shape[0], reduce_lanes)
-    acc = fe.pt_identity((lanes,), pub_rows.device)
-    # windows 63..32 take only the z*k digits; z has 32 digits
-    for w in range(NWINDOWS - 1, -1, -1):
-        sel = _select16(zk_digits[..., w], tbl_a)
-        if w < 32:
-            sel = fe.pt_add(sel, _select16(z_digits[..., w], tbl_r))
-        acc = fe.pt_add(fe.pt_dbl_n(acc, 4), _pt_reduce_to_lanes(sel, reduce_lanes))
-    return _pt_reduce_to_lanes(acc, kernels.RLC_MAX_LANES), prevalid
+    return _core(impl, fe_mxu).verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid,
+                                              reduce_lanes)
 
 
-def lanes_to_pt(lanes: torch.Tensor) -> fe.Pt:
-    """The kernels' lanes, int64 [P, 4, 5] of 51-bit limbs, as a [P]-point
-    in the plain version's 15 x 17-bit limbs, on the same device."""
+def lanes_to_pt(lanes: torch.Tensor, impl: str = "int64") -> fe.Pt:
+    """The RLC kernels' lanes as a [P]-point of the plain version of
+    `impl`, on the same device: int64 [P, 4, 5] of 51-bit limbs become 15 x
+    17-bit limbs; the packed (int32 [P, 4, 10]) and f32 (float32
+    [P, 4, 51]) kernels keep the plain layouts' limbs."""
+    if impl == "packed":
+        return fe.Pt(*lanes.to(torch.int64).unbind(1))
+    if impl == "f32":
+        return fe.Pt(*lanes.unbind(1))
     parts = torch.stack([lanes & fe.MASK, (lanes >> 17) & fe.MASK, lanes >> 34], dim=-1)
     limbs = fe.fe_carry(parts.reshape(lanes.shape[:-1] + (fe.NLIMBS,)))
     return fe.Pt(*limbs.unbind(1))
 
 
-def pt_rows(p: fe.Pt) -> torch.Tensor:
-    """Canonical X, Y, Z, T of each lane as bytes, uint8 [P, 4, 32]."""
-    return torch.stack([fe.fe_to_bytes(c) for c in p.astuple()], dim=1)
+def pt_rows(p: fe.Pt, impl: str = "int64") -> torch.Tensor:
+    """Canonical X, Y, Z, T of each lane of a point in `impl`'s limbs as
+    bytes, uint8 [P, 4, 32]."""
+    return torch.stack([_FIELDS[impl].fe_to_bytes(c) for c in p.astuple()], dim=1)
 
 
 def decompress_rows_plain(enc: torch.Tensor):
@@ -326,30 +353,33 @@ def _limb_table(device: torch.device, impl: str) -> torch.Tensor:
 
 
 def verify_rows(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64",
-                base_mxu=False) -> torch.Tensor:
+                base_mxu=False, fe_mxu=False) -> torch.Tensor:
     """bool [N] verdicts for packed rows in the field layout `impl`, with
-    [s]B by the comb where `base_mxu`: the verify kernel of that pair for
-    CUDA tensors, ``verify_core`` for CPU tensors.  The comb is never
-    offered for packed, as in the JAX package."""
+    [s]B by the comb where `base_mxu` and f32's multiply on the tensor
+    cores where `fe_mxu`: the verify kernel of that triple for CUDA
+    tensors, ``verify_core`` for CPU tensors.  The comb is never offered
+    for packed, as in the JAX package."""
     if base_mxu and impl == "packed":
         raise ValueError("the comb ([s]B by TM_CUDA_BASE_MXU) is not offered for packed")
     if pub_rows.is_cuda:
-        return kernels.verify(impl, base_mxu)(pub_rows, r_rows, s_rows, k_rows, valid,
-                                              kernel_table(impl, base_mxu, pub_rows.device))
-    return verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl, base_mxu)
+        return kernels.verify(impl, base_mxu, fe_mxu)(
+            pub_rows, r_rows, s_rows, k_rows, valid,
+            kernel_table(impl, base_mxu, pub_rows.device))
+    return verify_core(pub_rows, r_rows, s_rows, k_rows, valid, impl, base_mxu, fe_mxu)
 
 
-def verify_rows_rlc(pub_rows, r_rows, zk_rows, z_rows, valid):
-    """(lanes, prevalid) of the RLC equation for packed rows: the
-    ``ed25519_rlc`` kernel, then ``rlc_fold`` where it wrote more than 128
-    lanes, for CUDA tensors; ``verify_core_rlc`` for CPU tensors.  Lanes
-    come back as a point in the plain version's limbs."""
+def verify_rows_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, impl="int64", fe_mxu=False):
+    """(lanes, prevalid) of the RLC equation for packed rows in the field
+    layout `impl` (f32's multiply on the tensor cores where `fe_mxu`): the
+    RLC kernel of that pair, then the layout's fold where it wrote more
+    than 128 lanes, for CUDA tensors; ``verify_core_rlc`` for CPU tensors.
+    Lanes come back as a point in the plain version's limbs of `impl`."""
     if pub_rows.is_cuda:
-        lanes, prevalid = kernels.ed25519_rlc(pub_rows, r_rows, zk_rows, z_rows, valid)
+        lanes, prevalid = kernels.rlc(impl, fe_mxu)(pub_rows, r_rows, zk_rows, z_rows, valid)
         if lanes.shape[0] > kernels.RLC_MAX_LANES:
             lanes = kernels.rlc_fold(lanes)
-        return lanes_to_pt(lanes), prevalid
-    return verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid)
+        return lanes_to_pt(lanes, impl), prevalid
+    return verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, impl=impl, fe_mxu=fe_mxu)
 
 
 def decompress_rows(enc: torch.Tensor):
@@ -446,9 +476,12 @@ def rows_to_device(rows, device: torch.device):
 # ---------------------------------------------------------------------------
 #
 # Counterpart of the JAX package's default_impl / _resolve_auto_impl and
-# _optin_safe / _resolve_optin.  A layout or the comb is trusted on a
-# device only once it reproduces the golden batch's known verdicts there.
-# TM_CUDA_FIELD_IMPL and TM_CUDA_BASE_MXU are read at every call.
+# _optin_safe / _resolve_optin.  A layout, the comb or f32's tensor-core
+# multiply is trusted on a device only once the kernel that a call would
+# launch reproduces the golden batch's known verdicts there.
+# TM_CUDA_FIELD_IMPL, TM_CUDA_FE_MXU and TM_CUDA_BASE_MXU are read at
+# every call; a refusal is remembered in OPTIN_STATE, never in a module
+# flag.
 
 OPTIN_STATE: dict[tuple[str, str, str], bool] = {}  # (flag, impl, device type) -> passed
 
@@ -465,14 +498,27 @@ def default_impl(device=None) -> str:
 
 def _resolve_auto_impl(device: torch.device) -> str:
     """``auto``: int64 on the CPU, with no golden run.  On the card, the
-    JAX package's ladder in its order: f32 where its matrix-unit fe_mul
-    is available and gated (not ported yet, so never), else packed where
-    the packed kernel passes the golden batch, else int64."""
+    JAX package's ladder in its order: f32 where ``TM_CUDA_FE_MXU``
+    resolves on and the f32 kernel with the tensor-core fe_mul passes the
+    golden batch, else packed where the packed kernel passes it, else
+    int64."""
     if device.type != "cuda":
         return "int64"
+    if fe_mxu_on(device) and _optin_safe("fe_mxu", "f32", device):
+        return "f32"
     if _optin_safe("impl", "packed", device):
         return "packed"
     return "int64"
+
+
+def fe_mxu_on(device: torch.device) -> bool:
+    """``TM_CUDA_FE_MXU`` as read now, as the JAX ``_use_mxu`` resolves
+    ``TM_TPU_FE_MXU``: "1" on, "0" off, anything else (``auto``) on for
+    ``cuda`` and off on the CPU.  The golden gate still decides."""
+    mode = knobs.read("TM_CUDA_FE_MXU")
+    if mode in ("0", "1"):
+        return mode == "1"
+    return device.type == "cuda"
 
 
 def _golden_batch():
@@ -495,22 +541,25 @@ def _golden_batch():
 
 
 def _optin_safe(flag: str, impl: str, device: torch.device) -> bool:
-    """True iff `impl`'s verify kernel (flag "impl") or its comb variant
-    (flag "base_mxu") reproduces the golden verdicts on `device`.
-    Memoised per (flag, impl, device type).  A wrong verdict or a launch
-    error (the ``RuntimeError`` a wrapper or the CUDA runtime raises) warns
-    and refuses; a kernel that fails to build raises here, before the
-    check, and any other exception, a defect of the code, propagates, so
-    no refusal hides either."""
+    """True iff the verify kernel `flag` names for `impl` reproduces the
+    golden verdicts on `device`: flag "impl" the layout's standard kernel,
+    "base_mxu" its comb variant, "fe_mxu" f32 with the tensor-core fe_mul,
+    "base_mxu+fe_mxu" f32 with both (the kernel a call granted both
+    launches).  Memoised per (flag, impl, device type).  A wrong verdict
+    or a launch error (the ``RuntimeError`` a wrapper or the CUDA runtime
+    raises) warns and refuses; a kernel that fails to build raises here,
+    before the check, and any other exception, a defect of the code,
+    propagates, so no refusal hides either."""
     key = (flag, impl, device.type)
     if key in OPTIN_STATE:
         return OPTIN_STATE[key]
     if device.type == "cuda":
         kernels.library()
     rows, want = _golden_batch()
+    opts = flag.split("+")
     try:
         got = verify_rows(*rows_to_device(rows, device), impl=impl,
-                          base_mxu=flag == "base_mxu")
+                          base_mxu="base_mxu" in opts, fe_mxu="fe_mxu" in opts)
         ok = got.cpu().tolist() == want
     except RuntimeError as e:  # a launch error is a refusal too
         warnings.warn(f"opt-in kernel {flag!r} ({impl}) failed its golden self-check "
@@ -524,13 +573,17 @@ def _optin_safe(flag: str, impl: str, device: torch.device) -> bool:
     return ok
 
 
-def _resolve_optin(impl: str, device: torch.device) -> bool:
-    """Whether this call takes the comb: ``TM_CUDA_BASE_MXU=1`` as read
-    now, never for packed (as in the JAX package), and only once the
-    comb passed its golden batch on this device."""
+def _resolve_optin(impl: str, device: torch.device) -> tuple[bool, bool]:
+    """(base_mxu, fe_mxu) for this call.  fe_mxu: f32 only, where
+    ``TM_CUDA_FE_MXU`` resolves on (``fe_mxu_on``) and the tensor-core
+    multiply passed its golden batch on this device; once refused, f32
+    calls take the FFMA kernel.  base_mxu: ``TM_CUDA_BASE_MXU=1`` as read
+    now, never for packed (as in the JAX package), and only once the comb,
+    with the multiply fe_mxu chose, passed its golden batch."""
+    fe_mxu = impl == "f32" and fe_mxu_on(device) and _optin_safe("fe_mxu", "f32", device)
     if knobs.read("TM_CUDA_BASE_MXU") != "1" or impl == "packed":
-        return False
-    return _optin_safe("base_mxu", impl, device)
+        return False, fe_mxu
+    return _optin_safe("base_mxu+fe_mxu" if fe_mxu else "base_mxu", impl, device), fe_mxu
 
 
 def verify_batch(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
@@ -538,16 +591,16 @@ def verify_batch(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
 
     On ``cuda`` (the default) one launch of the verify kernel of the
     field layout `impl` (``default_impl()`` when None) covers the batch,
-    through the comb where ``_resolve_optin`` grants it;
-    ``device="cpu"`` runs the plain version."""
+    through the comb and the tensor-core fe_mul where ``_resolve_optin``
+    grants them; ``device="cpu"`` runs the plain version."""
     dev = resolve_device(device)
     n = len(pubs)
     if n == 0:
         return np.zeros(0, dtype=bool)
     impl = impl or default_impl(dev)
-    base_mxu = _resolve_optin(impl, dev)
+    base_mxu, fe_mxu = _resolve_optin(impl, dev)
     rows = rows_to_device(prepare_batch(pubs, msgs, sigs), dev)
-    return verify_rows(*rows, impl=impl, base_mxu=base_mxu).cpu().numpy()
+    return verify_rows(*rows, impl=impl, base_mxu=base_mxu, fe_mxu=fe_mxu).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -587,14 +640,16 @@ def prepare_rlc_scalars(s_rows, k_rows, valid):
     return (z_rows, *rlc_scalars(z_rows, s_rows, k_rows))
 
 
-def finalize_rlc(lanes: fe.Pt, c_row) -> bool:
+def finalize_rlc(lanes: fe.Pt, c_row, impl: str = "int64") -> bool:
     """The host's finish of the RLC equation, in exact big-int: sum the
-    lanes (any number), add [c]B, and test [8] * total == O.  The [8]
-    comes after [c]B: only then do torsion components cancel."""
+    lanes (any number, in `impl`'s limbs), add [c]B, and test [8] * total
+    == O.  The [8] comes after [c]B: only then do torsion components
+    cancel."""
+    int_from_limbs = _FIELDS[impl].int_from_limbs
     coords = [c.cpu().numpy() for c in lanes.astuple()]
     total = _ref.IDENTITY
     for lane in range(coords[0].shape[0]):
-        total = _ref.pt_add(total, tuple(fe.int_from_limbs(c[lane]) % _ref.P for c in coords))
+        total = _ref.pt_add(total, tuple(int_from_limbs(c[lane]) % _ref.P for c in coords))
     total = _ref.pt_add(total, _ref.scalar_mult_base(int.from_bytes(bytes(c_row), "little")))
     return _ref.pt_equal(_ref.scalar_mult(8, total), _ref.IDENTITY)
 
@@ -603,27 +658,30 @@ def verify_batch_rlc(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
     """ZIP-215 verification of the whole batch through the RLC equation;
     bool [N] numpy, the same verdicts as ``verify_batch``.
 
-    One ``ed25519_rlc`` launch (and one ``rlc_fold`` above 8,192 rows)
+    In the field layout `impl` (``default_impl()`` when None) with the
+    multiply ``_resolve_optin`` grants, both gated before the launch (as
+    the JAX package gates fe_mxu at ``verify_batch_rlc``): one launch of
+    that pair's RLC kernel (and one of the layout's fold above 8,192 rows)
     on ``cuda``, the plain version for ``device="cpu"``.  A batch that
     passes returns prevalid.  A batch that fails (it holds a bad row, or,
     with probability about 2^-125, z was unlucky) is decided by the exact
-    per-row ``verify_rows`` on the rows already prepared, in the field
-    layout `impl` (``default_impl()`` when None): the RLC kernels
-    themselves keep 5 x 51-bit limbs whatever the layout."""
+    per-row ``verify_rows`` on the rows already prepared, in the same
+    layout, multiply and comb."""
     dev = resolve_device(device)
     n = len(pubs)
     if n == 0:
         return np.zeros(0, dtype=bool)
     impl = impl or default_impl(dev)
+    base_mxu, fe_mxu = _resolve_optin(impl, dev)
     pub_rows, r_rows, s_rows, k_rows, valid = prepare_batch(pubs, msgs, sigs)
     z_rows, zk_rows, c_row = prepare_rlc_scalars(s_rows, k_rows, valid)
     pub_d, r_d, zk_d, z_d, valid_d = rows_to_device(
         (pub_rows, r_rows, zk_rows, z_rows, valid), dev)
-    lanes, prevalid = verify_rows_rlc(pub_d, r_d, zk_d, z_d, valid_d)
-    if finalize_rlc(lanes, c_row):
+    lanes, prevalid = verify_rows_rlc(pub_d, r_d, zk_d, z_d, valid_d, impl=impl, fe_mxu=fe_mxu)
+    if finalize_rlc(lanes, c_row, impl):
         RLC_STATS["pass"] += 1
         return prevalid.cpu().numpy()
     RLC_STATS["fallback"] += 1
     s_d, k_d = rows_to_device((s_rows, k_rows), dev)
-    return verify_rows(pub_d, r_d, s_d, k_d, valid_d, impl=impl,
-                       base_mxu=_resolve_optin(impl, dev)).cpu().numpy()
+    return verify_rows(pub_d, r_d, s_d, k_d, valid_d, impl=impl, base_mxu=base_mxu,
+                       fe_mxu=fe_mxu).cpu().numpy()

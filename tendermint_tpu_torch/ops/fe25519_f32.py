@@ -1,10 +1,13 @@
 """GF(2^255-19) field and edwards25519 point arithmetic on float32 tensors:
 51 signed limbs of 5 bits.
 
-The plain PyTorch version of the ``ed25519_verify_f32`` kernel's field
-and point layer (``csrc/fe_f32.cuh``) and the counterpart, limb for limb,
-of ``tendermint_tpu/ops/fe25519_f32.py`` without its matrix-unit fe_mul
-(``_fe_mul_mxu``, ``TM_TPU_FE_MXU``), which is not ported yet.
+The plain PyTorch version of the f32 kernels' field and point layer
+(``csrc/fe_f32.cuh``, ``csrc/fe_f32_mma.cuh``) and the counterpart, limb
+for limb, of ``tendermint_tpu/ops/fe25519_f32.py``, its matrix-unit
+fe_mul (``_fe_mul_mxu``) included: ``fe_mul_mxu`` contracts the product
+tensor against the incidence matrix (``inc_matrix``), and ``MXU`` is this
+layout with that multiply, the field object of ``_Core("f32",
+fe_mxu=True)``.  Both multiplies give the same columns, so the same limbs.
 
 Every operation is a float32 multiply, add or floor, exact because every
 intermediate is an integer of magnitude at most 2^24.  255 = 51 x 5, so
@@ -22,6 +25,7 @@ fe_carry(rounds=6) reduces any |c| <= 2^24, rounds=3 any |c| <= 204.
 from __future__ import annotations
 
 import functools
+import types
 
 import numpy as np
 import torch
@@ -75,6 +79,18 @@ _CONSTS = {
 }
 
 
+def inc_matrix() -> np.ndarray:
+    """[51 * 51, 51] incidence matrix (the JAX module's ``_inc_matrix``):
+    product (i, j), row 51 i + j, lands in column (i + j) mod 51, with
+    weight 19 past the 2^255 wrap and 1 below it."""
+    m = np.zeros((NLIMBS * NLIMBS, NLIMBS), dtype=np.float32)
+    m[np.arange(NLIMBS * NLIMBS), _CONSTS["COL_INDEX"]] = _CONSTS["COL_WEIGHT"]
+    return m
+
+
+_CONSTS["INC"] = inc_matrix()
+
+
 @functools.cache
 def const(name: str, device: torch.device) -> torch.Tensor:
     """A named limb constant (float32, or int64 for an index) on `device`."""
@@ -122,6 +138,27 @@ def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fe_carry(cols, rounds=6)
 
 
+def fe_mul_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The matrix-unit formulation (the JAX ``_fe_mul_mxu``; plain version
+    of the ``fe_mul_mma`` kernel): the [..., 2601] product tensor times the
+    constant incidence matrix [2601, 51], then 6 carry rounds.  A float32
+    matmul, exact under fe_mul's contract: every product and every partial
+    sum of a column is an integer below 2^24 (on the card torch keeps a
+    float32 matmul in full float32 unless TF32 is allowed).  The same
+    columns as ``fe_mul``, so the same limbs."""
+    a, b = torch.broadcast_tensors(a, b)
+    prod = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (NLIMBS * NLIMBS,))
+    return fe_carry(torch.matmul(prod, _c("INC", a)), rounds=6)
+
+
+def fe_mul_mxu_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The ``fe_mul_mma`` kernel for CUDA tensors (limbs float32 [N, 51]),
+    ``fe_mul_mxu`` for CPU tensors."""
+    if a.is_cuda:
+        return kernels.fe_mul_mma(a, b)
+    return fe_mul_mxu(a, b)
+
+
 def fe_sq(a: torch.Tensor) -> torch.Tensor:
     """a^2 for |a|_inf <= 63.  Its columns are the JAX squaring's
     (diagonal once, cross terms doubled), so its limbs are too."""
@@ -140,9 +177,9 @@ def fe_neg(a: torch.Tensor) -> torch.Tensor:
     return -a
 
 
-def fe_pow_p58(a: torch.Tensor) -> torch.Tensor:
+def fe_pow_p58(a: torch.Tensor, mul=fe_mul) -> torch.Tensor:
     """a^((p-5)/8), the chain of ``fe25519.pow_p58_chain``."""
-    return fe25519.pow_p58_chain(a, fe_mul, fe_sq)
+    return fe25519.pow_p58_chain(a, mul, fe_sq)
 
 
 def _fe_carry_exact(c: torch.Tensor) -> torch.Tensor:
@@ -226,30 +263,31 @@ def pt_identity(shape, device: torch.device) -> Pt:
     return Pt(c("ZERO"), c("ONE"), c("ONE"), c("ZERO"))
 
 
-def pt_add(p: Pt, q: Pt) -> Pt:
-    """Unified, complete a=-1 addition.  With reduced inputs, f = d2 - c
-    (up to 153) gets a 3-round partial carry, so every product meets the
-    fe_mul contract; the worst is g*h = 153 * 102 = 15,606."""
-    a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x))
-    b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x))
-    c = fe_mul(fe_mul(p.t, q.t), _c("D2", p.t))
-    d = fe_mul(p.z, q.z)
+def pt_add(p: Pt, q: Pt, mul=fe_mul) -> Pt:
+    """Unified, complete a=-1 addition, its products by `mul`.  With
+    reduced inputs, f = d2 - c (up to 153) gets a 3-round partial carry,
+    so every product meets the fe_mul contract; the worst is g*h = 153 *
+    102 = 15,606."""
+    a = mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x))
+    b = mul(fe_add(p.y, p.x), fe_add(q.y, q.x))
+    c = mul(mul(p.t, q.t), _c("D2", p.t))
+    d = mul(p.z, q.z)
     d2 = fe_add(d, d)
     e = fe_sub(b, a)
     f = fe_carry(fe_sub(d2, c), rounds=3)
     g = fe_add(d2, c)
     h = fe_add(b, a)
-    return Pt(fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h))
+    return Pt(mul(e, f), mul(g, h), mul(f, g), mul(e, h))
 
 
-def pt_dbl(p: Pt) -> Pt:
-    return pt_dbl_n(p, 1)
+def pt_dbl(p: Pt, mul=fe_mul) -> Pt:
+    return pt_dbl_n(p, 1, mul)
 
 
-def pt_dbl_n(p: Pt, k: int) -> Pt:
-    """k chained doublings, T only on the last.  (x + y)^2 goes through
-    fe_mul (operand up to 102, past fe_sq's 63); f = 2c + g (up to 204)
-    gets the 3-round partial carry."""
+def pt_dbl_n(p: Pt, k: int, mul=fe_mul) -> Pt:
+    """k chained doublings, T only on the last, the products by `mul`.
+    (x + y)^2 goes through the multiply (operand up to 102, past fe_sq's
+    63); f = 2c + g (up to 204) gets the 3-round partial carry."""
     if k < 1:
         raise ValueError("pt_dbl_n needs k >= 1")
     x, y, z = p.x, p.y, p.z
@@ -260,12 +298,12 @@ def pt_dbl_n(p: Pt, k: int) -> Pt:
         c = fe_add(c, c)
         h = fe_add(a, b)
         xy = fe_add(x, y)
-        e = fe_sub(h, fe_mul(xy, xy))
+        e = fe_sub(h, mul(xy, xy))
         g = fe_sub(a, b)
         f = fe_carry(fe_add(c, g), rounds=3)
         if i == k - 1:
-            return Pt(fe_mul(e, f), fe_mul(g, h), fe_mul(f, g), fe_mul(e, h))
-        x, y, z = fe_mul(e, f), fe_mul(g, h), fe_mul(f, g)
+            return Pt(mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+        x, y, z = mul(e, f), mul(g, h), mul(f, g)
 
 
 def pt_neg(p: Pt) -> Pt:
@@ -276,3 +314,24 @@ def pt_neg(p: Pt) -> Pt:
 def pt_is_identity(p: Pt) -> torch.Tensor:
     """X == 0 and Y == Z (projective identity test)."""
     return fe_is_zero(p.x) & fe_eq(p.y, p.z)
+
+
+# ---------------------------------------------------------------------------
+# This layout with the matrix-unit fe_mul, as one field object
+# ---------------------------------------------------------------------------
+
+_SHARED = ("NLIMBS", "DTYPE", "Pt", "const", "limbs_of_bits", "int_from_limbs",
+           "fe_from_bytes", "fe_to_bytes", "fe_carry", "fe_add", "fe_sub", "fe_neg", "fe_sq",
+           "fe_canonical", "fe_eq", "fe_is_zero", "pt_identity", "pt_neg", "pt_is_identity")
+
+MXU = types.SimpleNamespace(
+    **{name: globals()[name] for name in _SHARED},
+    fe_mul=fe_mul_mxu,
+    fe_pow_p58=functools.partial(fe_pow_p58, mul=fe_mul_mxu),
+    pt_add=functools.partial(pt_add, mul=fe_mul_mxu),
+    pt_dbl=functools.partial(pt_dbl, mul=fe_mul_mxu),
+    pt_dbl_n=functools.partial(pt_dbl_n, mul=fe_mul_mxu),
+)
+"""The f32 layout whose fe_mul is ``fe_mul_mxu`` (squarings keep
+``fe_sq``, as in the JAX module): what ``_Core("f32", fe_mxu=True)``
+computes with, the plain version of the kernels on ``csrc/fe_f32_mma.cuh``."""

@@ -166,9 +166,47 @@ def decompress_rows(seed: int, n_random: int) -> np.ndarray:
     return np.concatenate([rows, rand])
 
 
+def fe_mul_bound_limbs(seed: int, n_random: int) -> tuple[np.ndarray, np.ndarray]:
+    """Raw f32-layout operands (float32 [*, 51] each) at the bounds of the
+    f32 fe_mul's contract, |a|_inf * |b|_inf <= 17,641: every limb +-153
+    times every limb +-102 in each sign pattern (the worst product of the
+    point formulas, 15,606), +-133 x +-132, alternating signs, a single
+    limb at 17,641 against ones (every column at 951 x 17,641, just under
+    2^24), and then `n_random` rows of limbs drawn in [-153, 153] x
+    [-102, 102]."""
+    n = 51
+    alt = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    pairs = [(153 * sa, 102 * sb) for sa in (1, -1) for sb in (1, -1)]
+    pairs += [(133.0, -132.0), (-133.0, 132.0), (153 * alt, 102 * alt), (153 * alt, -102 * alt),
+              (17641.0, 1.0), (-17641.0, 1.0), (1.0, -17641.0)]
+    a = np.stack([np.broadcast_to(np.float32(x), (n,)) for x, _ in pairs])
+    b = np.stack([np.broadcast_to(np.float32(y), (n,)) for _, y in pairs])
+    rng = np.random.default_rng(seed)
+    ra = rng.integers(-153, 154, size=(n_random, n)).astype(np.float32)
+    rb = rng.integers(-102, 103, size=(n_random, n)).astype(np.float32)
+    return (np.ascontiguousarray(np.concatenate([a, ra]), dtype=np.float32),
+            np.ascontiguousarray(np.concatenate([b, rb]), dtype=np.float32))
+
+
 # ---------------------------------------------------------------------------
 # RLC inputs
 # ---------------------------------------------------------------------------
+
+# numpy dtype of the RLC kernels' lane limbs, per layout (the int64
+# kernels' 51-bit limbs read as unsigned, as the host builds write them)
+LANE_DTYPES = {"int64": np.uint64, "packed": np.int32, "f32": np.float32}
+
+
+def random_lanes(seed: int, n: int, impl: str = "int64") -> np.ndarray:
+    """n RLC lanes, random multiples of B, in the lane layout the RLC
+    kernels of `impl` write: [n, 4 (X, Y, Z, T), limbs], 5 x 51-bit limbs
+    (uint64) for int64, the plain layouts' limbs for packed (int32) and
+    f32 (float32)."""
+    rng = np.random.default_rng(seed)
+    pts = [ref.scalar_mult_base(int(rng.integers(1, 1 << 62))) for _ in range(n)]
+    limbs = (ed25519_torch.kernels.limbs51 if impl == "int64"
+             else ed25519_torch._FIELDS[impl].limbs_from_int)
+    return np.array([[limbs(c) for c in p] for p in pts], dtype=LANE_DTYPES[impl])
 
 def rlc_rows(prepared, seed: int):
     """From ``prepare_batch``'s rows (pub, r, s, k, valid), the RLC

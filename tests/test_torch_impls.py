@@ -3,9 +3,10 @@
 layout and with the comb against the pure ZIP-215 reference, the packed
 verdicts against the JAX package's ``_compiled(8, "packed")`` (a program
 its own tests compile), the comb table and the golden batch against the
-JAX package's, and the ``TM_CUDA_FIELD_IMPL`` / ``TM_CUDA_BASE_MXU``
-ladder and golden-batch gate.  No f32 or comb program of the JAX package
-is compiled here.  Verdicts, tables and rows are compared exactly."""
+JAX package's, and the ``TM_CUDA_FIELD_IMPL`` / ``TM_CUDA_BASE_MXU`` /
+``TM_CUDA_FE_MXU`` ladder and golden-batch gate.  No f32 or comb program
+of the JAX package is compiled here.  Verdicts, tables and rows are
+compared exactly."""
 
 import warnings
 
@@ -46,13 +47,15 @@ def clean_gate(monkeypatch):
     monkeypatch.setattr(dev, "OPTIN_STATE", {})
     monkeypatch.delenv("TM_CUDA_FIELD_IMPL", raising=False)
     monkeypatch.delenv("TM_CUDA_BASE_MXU", raising=False)
+    monkeypatch.delenv("TM_CUDA_FE_MXU", raising=False)
 
 
-@pytest.mark.parametrize("impl,base_mxu", sorted(kernels.VERIFY_KERNELS))
-def test_plain_verify_matches_the_reference_in_every_layout(gauntlet, impl, base_mxu):
+@pytest.mark.parametrize("impl,base_mxu,fe_mxu", sorted(kernels.VERIFY_KERNELS))
+def test_plain_verify_matches_the_reference_in_every_layout(gauntlet, impl, base_mxu, fe_mxu):
     (pubs, msgs, sigs), want = gauntlet
     rows = dev.rows_to_device(dev.prepare_batch(pubs, msgs, sigs), CPU)
-    assert dev.verify_rows(*rows, impl=impl, base_mxu=base_mxu).tolist() == want
+    got = dev.verify_rows(*rows, impl=impl, base_mxu=base_mxu, fe_mxu=fe_mxu)
+    assert got.tolist() == want
     assert any(want) and not all(want)
 
 
@@ -107,9 +110,10 @@ def test_auto_is_int64_on_the_cpu_without_a_golden_run(clean_gate):
 
 
 def test_auto_ladder_order_on_the_card_with_the_gate_stubbed(clean_gate, monkeypatch):
-    """The JAX ladder: f32 only with its matrix-unit fe_mul (not ported,
-    so never, even when every gate passes), else packed where its gate
-    passes, else int64."""
+    """The JAX ladder: f32 with its matrix-unit fe_mul where that gate
+    passes, else packed where its gate passes, else int64; with
+    ``TM_CUDA_FE_MXU=0`` the f32 rung is never asked, even when every
+    gate would pass."""
     cuda = torch.device("cuda")
     asked = []
 
@@ -120,19 +124,24 @@ def test_auto_ladder_order_on_the_card_with_the_gate_stubbed(clean_gate, monkeyp
         return stub
 
     monkeypatch.setattr(dev, "_optin_safe", gate(lambda flag, impl: True))
-    assert dev._resolve_auto_impl(cuda) == "packed"
+    assert dev._resolve_auto_impl(cuda) == "f32"
     monkeypatch.setattr(dev, "_optin_safe", gate(lambda flag, impl: impl == "packed"))
     assert dev._resolve_auto_impl(cuda) == "packed"
     monkeypatch.setattr(dev, "_optin_safe", gate(lambda flag, impl: False))
     assert dev._resolve_auto_impl(cuda) == "int64"
-    assert set(asked) == {("impl", "packed", "cuda")}
+    assert set(asked) == {("fe_mxu", "f32", "cuda"), ("impl", "packed", "cuda")}
+    asked.clear()
+    monkeypatch.setenv("TM_CUDA_FE_MXU", "0")
+    monkeypatch.setattr(dev, "_optin_safe", gate(lambda flag, impl: True))
+    assert dev._resolve_auto_impl(cuda) == "packed"
+    assert asked == [("impl", "packed", "cuda")]
 
 
 def test_a_refused_gate_warns_and_routes_to_int64(clean_gate, monkeypatch):
     """The packed kernel's launch fails (the wrappers' RuntimeError): the
     gate warns, refuses, remembers, and auto takes int64 on the card."""
-    def launch_fails(*rows, impl, base_mxu):
-        kernels._raise_on(700, kernels.VERIFY_KERNELS[(impl, base_mxu)])
+    def launch_fails(*rows, impl, base_mxu, fe_mxu):
+        kernels._raise_on(700, kernels.VERIFY_KERNELS[(impl, base_mxu, fe_mxu)])
 
     monkeypatch.setattr(kernels, "library", lambda: None)
     monkeypatch.setattr(dev, "rows_to_device", lambda rows, device: rows)
@@ -142,7 +151,8 @@ def test_a_refused_gate_warns_and_routes_to_int64(clean_gate, monkeypatch):
     messages = [str(w.message) for w in record]
     assert any("with an error" in m and "launch failed" in m for m in messages)
     assert any("WRONG verdicts" in m for m in messages)
-    assert dev.OPTIN_STATE == {("impl", "packed", "cuda"): False}
+    assert dev.OPTIN_STATE == {("fe_mxu", "f32", "cuda"): False,
+                               ("impl", "packed", "cuda"): False}
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert dev._resolve_auto_impl(torch.device("cuda")) == "int64"  # memoised
@@ -152,7 +162,7 @@ def test_a_code_defect_raises_through_the_gate(clean_gate, monkeypatch):
     """A wrapper that refuses its input (a ValueError, as ``kernels._check``
     raises) is a defect of the code, not of the device: the gate lets it
     through and remembers nothing."""
-    def refuses(*rows, impl, base_mxu):
+    def refuses(*rows, impl, base_mxu, fe_mxu):
         raise ValueError("pub: expected torch.uint8, got torch.int64")
 
     monkeypatch.setattr(kernels, "library", lambda: None)
@@ -194,11 +204,11 @@ def test_a_wrong_comb_is_refused_and_verdicts_stay_right(clean_gate, monkeypatch
 
 def test_the_comb_gate_passes_on_the_cpu_and_packed_never_asks_it(clean_gate, monkeypatch):
     monkeypatch.setenv("TM_CUDA_BASE_MXU", "1")
-    assert dev._resolve_optin("int64", CPU) is True
-    assert dev._resolve_optin("packed", CPU) is False
+    assert dev._resolve_optin("int64", CPU) == (True, False)
+    assert dev._resolve_optin("packed", CPU) == (False, False)
     assert dev.OPTIN_STATE == {("base_mxu", "int64", "cpu"): True}
     monkeypatch.setenv("TM_CUDA_BASE_MXU", "0")
-    assert dev._resolve_optin("int64", CPU) is False
+    assert dev._resolve_optin("int64", CPU) == (False, False)
     with pytest.raises(ValueError, match="not offered for packed"):
         dev.verify_rows(*(torch.zeros((1, 32), dtype=torch.uint8),) * 4,
                         torch.ones(1, dtype=torch.bool), impl="packed", base_mxu=True)

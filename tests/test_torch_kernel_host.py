@@ -1,8 +1,9 @@
 """The CUDA sources' device functions, built for the CPU by the host C++
 compiler (every ``csrc/*.cu``, with the headers it includes, compiles as
 plain C++; the comb's tensor-core selection becomes a gather of the same
-byte table there), against the plain PyTorch versions and the pure
-ZIP-215 reference; and the field
+byte table there, and the tensor-core fe_mul a plain loop over the same
+split products, K order and incidence weights), against the plain
+PyTorch versions and the pure ZIP-215 reference; and the field
 multiplies and squarings per row (and per block) that the kernels' bound
 is computed from (``ops/kernels.FIELD_OPS_PER_ROW``,
 ``FIELD_OPS_PER_BLOCK``), counted in that same code.  Integer arithmetic:
@@ -62,11 +63,33 @@ def f32_lib(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def f32_mma_lib(tmp_path_factory):
+    return _host_build(tmp_path_factory, "ed25519_verify_f32_mma")
+
+
+class _RlcLibs:
+    """The host builds of the two RLC sources, each entry point looked up
+    in the one that defines it."""
+
+    def __init__(self, *libs):
+        self.libs = libs
+        for lib in libs:
+            for name in ("ed25519_rlc", "ed25519_rlc_packed", "ed25519_rlc_f32",
+                         "ed25519_rlc_f32_mma", "rlc_fold", "rlc_fold_packed", "rlc_fold_f32"):
+                if hasattr(lib, f"tm_host_{name}"):
+                    getattr(lib, f"tm_host_{name}").restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        for lib in self.libs:
+            if hasattr(lib, name):
+                return getattr(lib, name)
+        raise AttributeError(name)
+
+
+@pytest.fixture(scope="module")
 def rlc_lib(tmp_path_factory):
-    lib = _host_build(tmp_path_factory, "ed25519_rlc")
-    lib.tm_host_ed25519_rlc.restype = ctypes.c_int
-    lib.tm_host_rlc_fold.restype = ctypes.c_int
-    return lib
+    return _RlcLibs(_host_build(tmp_path_factory, "ed25519_rlc"),
+                    _host_build(tmp_path_factory, "ed25519_rlc_f32"))
 
 
 def _p(a: np.ndarray):
@@ -74,13 +97,13 @@ def _p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _verify(lib, rows, impl="int64", base_mxu=False):
-    """The host build of the verify kernel of (impl, base_mxu), on the
-    table the card's kernel reads."""
+def _verify(lib, rows, impl="int64", base_mxu=False, fe_mxu=False):
+    """The host build of the verify kernel of (impl, base_mxu, fe_mxu), on
+    the table the card's kernel reads."""
     pub, r, s, k, valid = (np.ascontiguousarray(a) for a in rows)
     table = np.ascontiguousarray(ed25519_torch.kernel_table(impl, base_mxu, CPU).numpy())
     out = np.zeros(len(valid), dtype=np.uint8)
-    getattr(lib, f"tm_host_{kernels.VERIFY_KERNELS[(impl, base_mxu)]}")(
+    getattr(lib, f"tm_host_{kernels.VERIFY_KERNELS[(impl, base_mxu, fe_mxu)]}")(
         _p(pub), _p(r), _p(s), _p(k), _p(valid.astype(np.uint8)), _p(table), _p(out),
         ctypes.c_int(len(valid)))
     return out.astype(bool)
@@ -92,6 +115,14 @@ def _fe_ops(lib, a, b, kernel="fe_ops"):
     return outs
 
 
+def _fe_mul_mma(lib, a, b):
+    """The host build of fe_mul_mma on raw limbs float32 [N, 51]."""
+    out = np.zeros_like(a)
+    lib.tm_host_fe_mul_mma(_p(np.ascontiguousarray(a)), _p(np.ascontiguousarray(b)), _p(out),
+                           ctypes.c_int(len(a)))
+    return out
+
+
 def _decompress(lib, enc):
     xy = np.zeros((len(enc), 2, 32), dtype=np.uint8)
     ok = np.zeros(len(enc), dtype=np.uint8)
@@ -99,25 +130,34 @@ def _decompress(lib, enc):
     return xy, ok.astype(bool)
 
 
-def _rlc(lib, rows):
-    """The host build's (lanes uint64 [ceil(N / 64), 4, 5], prevalid)."""
+def _rlc(lib, rows, kernel="ed25519_rlc"):
+    """The host build's (lanes [ceil(N / 64), 4, limbs] in the kernel's
+    layout, prevalid)."""
+    impl = {v: k for k, v in kernels.RLC_KERNELS.items()}[kernel][0]
     pub, r, zk, z, valid = (np.ascontiguousarray(a) for a in rows)
     n = len(valid)
-    lanes = np.zeros((kernels.rlc_lanes(n), 4, 5), dtype=np.uint64)
+    lanes = np.zeros((kernels.rlc_lanes(n), 4, kernels.LANE_LIMBS[impl][1]),
+                     dtype=testkit.LANE_DTYPES[impl])
     prevalid = np.zeros(n, dtype=np.uint8)
-    assert lib.tm_host_ed25519_rlc(_p(pub), _p(r), _p(zk), _p(z), _p(valid.astype(np.uint8)),
-                                   _p(lanes), _p(prevalid), ctypes.c_int(n)) == 0
+    assert getattr(lib, f"tm_host_{kernel}")(_p(pub), _p(r), _p(zk), _p(z),
+                                             _p(valid.astype(np.uint8)), _p(lanes), _p(prevalid),
+                                             ctypes.c_int(n)) == 0
     return lanes, prevalid.astype(bool)
 
 
-def _fold(lib, lanes):
+def _fold(lib, lanes, impl="int64"):
     work = np.zeros_like(lanes)
-    width = lib.tm_host_rlc_fold(_p(np.ascontiguousarray(lanes)), _p(work), len(lanes))
+    width = getattr(lib, f"tm_host_{kernels.FOLD_KERNELS[impl]}")(
+        _p(np.ascontiguousarray(lanes)), _p(work), len(lanes))
     return work[:width]
 
 
-def _lane_points(lanes) -> list:
-    """Kernel-layout lanes (51-bit limbs) as big-int points."""
+def _lane_points(lanes, impl="int64") -> list:
+    """Kernel-layout lanes (51-bit limbs, or `impl`'s plain limbs) as
+    big-int points."""
+    if impl != "int64":
+        int_from_limbs = ed25519_torch._FIELDS[impl].int_from_limbs
+        return [tuple(int_from_limbs(coord) % ref.P for coord in lane) for lane in lanes]
     return [tuple(sum(int(v) << (51 * i) for i, v in enumerate(coord)) % ref.P
                   for coord in lane) for lane in lanes]
 
@@ -136,6 +176,10 @@ def _sum(points):
 
 
 def _counts(lib) -> tuple[int, int]:
+    """The multiplies and squarings a host build (or the RLC builds
+    together) counted since the last call; resets them."""
+    if isinstance(lib, _RlcLibs):
+        return tuple(map(sum, zip(*(_counts(each) for each in lib.libs))))
     mul_sq = np.zeros(2, dtype=np.uint64)
     lib.tm_host_field_op_counts(_p(mul_sq))
     return int(mul_sq[0]), int(mul_sq[1])
@@ -163,25 +207,24 @@ def test_fe_ops_and_decompress_rows_match_the_plain_versions(host_lib):
     assert ok.any() and not ok.all()
 
 
-def _random_lanes(seed: int, n: int) -> np.ndarray:
-    """n lanes of random multiples of B in the kernel's layout."""
-    rng = np.random.default_rng(seed)
-    pts = [ref.scalar_mult_base(int(rng.integers(1, 1 << 62))) for _ in range(n)]
-    return np.array([[kernels.limbs51(c) for c in p] for p in pts], dtype=np.uint64)
+_random_lanes = testkit.random_lanes  # n lanes of random multiples of B, per layout
 
 
 _IMPL_OF = {name: key for key, name in kernels.VERIFY_KERNELS.items()}
+_FOLD_IMPL = {name: impl for impl, name in kernels.FOLD_KERNELS.items()}
 
 
 @pytest.mark.parametrize("kernel", sorted(kernels.FIELD_OPS_PER_ROW))
-def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f32_lib, rlc_lib,
-                                                         kernel):
+def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f32_lib,
+                                                         f32_mma_lib, rlc_lib, kernel):
     """One row of each kernel, counted; no loop depends on the data, so
-    one row's count is every row's.  ed25519_rlc is counted on 1 and on
-    65 rows, which fixes both its per-row and its per-block term;
-    rlc_fold on 157 lanes, the commit-10k call's."""
+    one row's count is every row's.  The RLC kernels are counted on 1 and
+    on 65 rows, which fixes both their per-row and their per-block term;
+    the folds on 157 lanes, the commit-10k call's."""
     lib = {"51": host_lib, "packed": packed_lib, "f32": f32_lib}[kernels.layout(kernel)]
-    for each in (host_lib, packed_lib, f32_lib, rlc_lib):
+    if kernel in kernels.MMA_KERNELS:
+        lib = f32_mma_lib
+    for each in (host_lib, packed_lib, f32_lib, f32_mma_lib, rlc_lib):
         _counts(each)
     if kernel in _IMPL_OF:
         pub, msg, sig = testkit.adversarial_cases(seed=0)[0]
@@ -190,23 +233,41 @@ def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f
     elif kernel.startswith("fe_ops"):
         row = testkit.field_rows(seed=7, n_random=1)[:1]
         _fe_ops(lib, row, row, kernel)
+    elif kernel == "fe_mul_mma":
+        a, b = testkit.fe_mul_bound_limbs(seed=7, n_random=0)
+        _fe_mul_mma(f32_mma_lib, a[:1], b[:1])
     elif kernel == "decompress":
         _decompress(host_lib, testkit.decompress_rows(seed=8, n_random=0)[:1])
-    elif kernel == "ed25519_rlc":
+    elif kernel in kernels.RLC_KERNELS.values():
         keys = testkit.validator_keys(seed=11, n=65)
         msgs = [b"count %d" % i for i in range(65)]
         prepared = ed25519_torch.prepare_batch(
             [k.pub_key().bytes_() for k in keys], msgs, [k.sign(m) for k, m in zip(keys, msgs)])
         rows, _ = testkit.rlc_rows(prepared, seed=12)
         for n in (1, 65):
-            _rlc(rlc_lib, tuple(a[:n] for a in rows))
+            _rlc(rlc_lib, tuple(a[:n] for a in rows), kernel)
             assert _counts(rlc_lib) == kernels.field_ops(kernel, n), n
         return
     else:
-        assert len(_fold(rlc_lib, _random_lanes(13, 157))) == 79
+        impl = _FOLD_IMPL[kernel]
+        assert len(_fold(rlc_lib, _random_lanes(13, 157, impl), impl)) == 79
         assert _counts(rlc_lib) == kernels.field_ops(kernel, 157) == (78 * 9, 0)
         return
     assert _counts(lib) == kernels.FIELD_OPS_PER_ROW[kernel] == kernels.field_ops(kernel, 1)
+
+
+@pytest.mark.parametrize("mma,ffma", [("ed25519_verify_f32_mma", "ed25519_verify_f32"),
+                                      ("ed25519_verify_f32_mma_comb", "ed25519_verify_f32_comb"),
+                                      ("ed25519_rlc_f32_mma", "ed25519_rlc_f32")])
+def test_a_tensor_core_kernels_bound_is_never_above_its_ffma_kernels(mma, ffma):
+    """An mma kernel's bound is priced on the FFMA kernel's FP32 count (the
+    same products) plus the tensor cores' int8 operations, so where the
+    int8 work is the smaller the two bounds of one function are equal."""
+    for n in (128, 10_000):
+        ops = kernels.operations(mma, n)
+        assert set(ops) == {"ffma", "int8_mma"}
+        assert ops["ffma"] == kernels.operations(ffma, n)["ffma"]
+        assert ops["int8_mma"] == kernels.MMA_MUL_INT8_OPS * kernels.field_ops(mma, n)[0]
 
 
 @pytest.fixture(scope="module")
@@ -270,12 +331,12 @@ def test_verify_rows_on_a_mixed_batch(host_lib):
 
 
 @pytest.fixture(scope="module")
-def libs(host_lib, packed_lib, f32_lib):
-    return {"int64": host_lib, "packed": packed_lib, "f32": f32_lib}
+def libs(host_lib, packed_lib, f32_lib, f32_mma_lib):
+    return {"int64": host_lib, "packed": packed_lib, "f32": f32_lib, "f32_mma": f32_mma_lib}
 
 
-@pytest.mark.parametrize("impl,base_mxu", sorted(kernels.VERIFY_KERNELS))
-def test_every_verify_kernel_matches_the_reference(libs, impl, base_mxu):
+@pytest.mark.parametrize("impl,base_mxu,fe_mxu", sorted(kernels.VERIFY_KERNELS))
+def test_every_verify_kernel_matches_the_reference(libs, impl, base_mxu, fe_mxu):
     """Each layout's kernel, and the comb, on the gauntlet and on a mixed
     batch of signed votes: the reference's verdicts."""
     cases = testkit.adversarial_cases(seed=0)
@@ -285,7 +346,8 @@ def test_every_verify_kernel_matches_the_reference(libs, impl, base_mxu):
                                 [k.sign(m) for k, m in zip(keys, msgs)], seed=18)
     for pubs, msgs, sigs in (tuple([c[i] for c in cases] for i in range(3)), mixed[:3]):
         want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
-        got = _verify(libs[impl], ed25519_torch.prepare_batch(pubs, msgs, sigs), impl, base_mxu)
+        got = _verify(libs["f32_mma" if fe_mxu else impl],
+                      ed25519_torch.prepare_batch(pubs, msgs, sigs), impl, base_mxu, fe_mxu)
         assert got.tolist() == want
         assert any(want) and not all(want)
 
@@ -320,3 +382,62 @@ def test_comb_selection_matches_the_plain_one_hot_product(host_lib):
     for w, j in ((0, 1), (1, 255), (31, 128), (17, 0)):
         entry = b"".join((c % ref.P).to_bytes(32, "little") for c in rows[w][j])
         assert outs[0][j, w].tobytes() == entry
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core fe_mul and the RLC kernels of every layout
+# ---------------------------------------------------------------------------
+
+def test_fe_mul_mma_matches_the_plain_matrix_unit_product(f32_mma_lib):
+    """The host build's split products, K order and incidence weights
+    against ``fe_mul_mxu``, limb for limb, on operands at the contract's
+    bounds (limbs up to +-153 x +-102) and seeded ones within it."""
+    a, b = testkit.fe_mul_bound_limbs(seed=21, n_random=200)
+    got = _fe_mul_mma(f32_mma_lib, a, b)
+    want = fe25519_f32.fe_mul_mxu(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(want, fe25519_f32.fe_mul(torch.from_numpy(a),
+                                                   torch.from_numpy(b)).numpy())
+
+
+@pytest.mark.parametrize("impl,fe_mxu", sorted(kernels.RLC_KERNELS))
+def test_rlc_kernels_of_every_layout_sum_to_the_plain_lanes(rlc_lib, rlc_batch, impl, fe_mxu):
+    """Each layout's RLC kernel on 65 rows (two blocks, the second with
+    one row) of the mixed and the honest batch: its lanes sum to the int64
+    plain version's (held against the JAX program in test_torch_rlc.py),
+    with the same prevalid and the same decision, in the layout's own
+    finish."""
+    kernel = kernels.RLC_KERNELS[(impl, fe_mxu)]
+    for prepared, honest in zip(rlc_batch, (False, True)):
+        rows, c_row = testkit.rlc_rows(tuple(a[:65] for a in prepared), seed=22)
+        lanes, prevalid = _rlc(rlc_lib, rows, kernel)
+        plain, plain_prevalid = ed25519_torch.verify_core_rlc(*map(torch.from_numpy, rows))
+        assert np.array_equal(prevalid, plain_prevalid.numpy())
+        assert ref.pt_equal(_sum(_lane_points(lanes, impl)), _sum(_pt_points(plain)))
+        as_pt = ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64)
+                                                           if impl == "int64" else lanes), impl)
+        assert ed25519_torch.finalize_rlc(as_pt, c_row, impl) == honest
+
+
+@pytest.mark.parametrize("impl", sorted(kernels.FOLD_KERNELS))
+def test_each_layouts_fold_matches_its_plain_fold_lane_for_lane(rlc_lib, impl):
+    """The fold of each layout pairs lanes as ``_pt_reduce_to_lanes(acc,
+    128)`` does in that layout: the same limbs at an odd width (the same
+    point for the 5 x 51-bit fold, whose plain version has other limbs)."""
+    lanes = _random_lanes(23, 157, impl)
+    folded = _fold(rlc_lib, lanes, impl)
+    plain = ed25519_torch._pt_reduce_to_lanes(
+        ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64)
+                                                   if impl == "int64" else lanes), impl),
+        128, impl)
+    assert len(folded) == kernels.reduced_width(157, 128) == plain.x.shape[0]
+    assert _lane_points(folded, impl) == _pt_points_of(plain, impl)
+    if impl != "int64":
+        assert np.array_equal(folded, torch.stack(plain.astuple(), dim=1).numpy())
+
+
+def _pt_points_of(p, impl) -> list:
+    int_from_limbs = ed25519_torch._FIELDS[impl].int_from_limbs
+    coords = [c.numpy() for c in p.astuple()]
+    return [tuple(int_from_limbs(c[i]) % ref.P for c in coords)
+            for i in range(coords[0].shape[0])]

@@ -70,8 +70,9 @@ def test_verify_commit_on_the_card(cuda):
     vals = testkit.validator_set(keys)
     commit = testkit.signed_commit(keys, vals, height=7)
     # the kernel of the layout TM_CUDA_FIELD_IMPL resolves to (auto: the
-    # golden gate runs here, before the count)
-    kernel = kernels.VERIFY_KERNELS[(ed25519_torch.default_impl(cuda), False)]
+    # golden gates run here, before the count)
+    impl = ed25519_torch.default_impl(cuda)
+    kernel = kernels.VERIFY_KERNELS[(impl, *ed25519_torch._resolve_optin(impl, cuda))]
     before = kernels.LAUNCHES[kernel]
     vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
     assert kernels.LAUNCHES[kernel] == before + 1
@@ -138,10 +139,13 @@ def test_verify_batch_rlc_on_the_card(cuda):
     cases = testkit.adversarial_cases(seed=0)
     pubs, msgs, sigs = ([c[i] for c in cases] for i in range(3))
     want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
-    fallback = kernels.VERIFY_KERNELS[(ed25519_torch.default_impl(cuda), False)]
+    impl = ed25519_torch.default_impl(cuda)
+    base_mxu, fe_mxu = ed25519_torch._resolve_optin(impl, cuda)
+    fallback = kernels.VERIFY_KERNELS[(impl, base_mxu, fe_mxu)]
+    rlc = kernels.RLC_KERNELS[(impl, fe_mxu)]
     before = dict(kernels.LAUNCHES), dict(ed25519_torch.RLC_STATS)
     assert ed25519_torch.verify_batch_rlc(pubs, msgs, sigs).tolist() == want
-    assert kernels.LAUNCHES["ed25519_rlc"] == before[0]["ed25519_rlc"] + 1
+    assert kernels.LAUNCHES[rlc] == before[0][rlc] + 1
     assert kernels.LAUNCHES[fallback] == before[0][fallback] + 1
     assert ed25519_torch.RLC_STATS["fallback"] == before[1]["fallback"] + 1
     honest = [i for i, ok in enumerate(want) if ok]
@@ -153,11 +157,11 @@ def test_verify_batch_rlc_on_the_card(cuda):
 # The packed and f32 layouts and the comb
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("impl,base_mxu", sorted(kernels.VERIFY_KERNELS))
-def test_every_verify_kernel_matches_plain_and_reference(cuda, impl, base_mxu):
+@pytest.mark.parametrize("impl,base_mxu,fe_mxu", sorted(kernels.VERIFY_KERNELS))
+def test_every_verify_kernel_matches_plain_and_reference(cuda, impl, base_mxu, fe_mxu):
     """The gauntlet and a mixed batch across blocks: kernel = plain =
     reference, one launch each."""
-    name = kernels.VERIFY_KERNELS[(impl, base_mxu)]
+    name = kernels.VERIFY_KERNELS[(impl, base_mxu, fe_mxu)]
     cases = testkit.adversarial_cases(seed=0)
     keys = testkit.validator_keys(seed=10, n=200)
     msgs = [b"vote %d" % i for i in range(200)]
@@ -168,10 +172,10 @@ def test_every_verify_kernel_matches_plain_and_reference(cuda, impl, base_mxu):
         want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
         rows = ed25519_torch.rows_to_device(ed25519_torch.prepare_batch(pubs, msgs, sigs), cuda)
         before = kernels.LAUNCHES[name]
-        got = ed25519_torch.verify_rows(*rows, impl=impl, base_mxu=base_mxu)
+        got = ed25519_torch.verify_rows(*rows, impl=impl, base_mxu=base_mxu, fe_mxu=fe_mxu)
         assert kernels.LAUNCHES[name] == before + 1
         assert got.cpu().tolist() == want
-        plain = ed25519_torch.verify_core(*rows, impl=impl, base_mxu=base_mxu)
+        plain = ed25519_torch.verify_core(*rows, impl=impl, base_mxu=base_mxu, fe_mxu=fe_mxu)
         assert plain.cpu().tolist() == want
 
 
@@ -206,18 +210,25 @@ def test_golden_gates_pass_on_the_card(cuda, monkeypatch):
     assert ed25519_torch._optin_safe("impl", "packed", cuda)
     assert ed25519_torch._optin_safe("base_mxu", "int64", cuda)
     assert ed25519_torch._optin_safe("base_mxu", "f32", cuda)
+    assert ed25519_torch._optin_safe("fe_mxu", "f32", cuda)
+    assert ed25519_torch._optin_safe("base_mxu+fe_mxu", "f32", cuda)
     monkeypatch.delenv("TM_CUDA_FIELD_IMPL", raising=False)
+    monkeypatch.delenv("TM_CUDA_FE_MXU", raising=False)
+    assert ed25519_torch.default_impl(cuda) == "f32"
+    monkeypatch.setenv("TM_CUDA_FE_MXU", "0")
     assert ed25519_torch.default_impl(cuda) == "packed"
 
 
-@pytest.mark.parametrize("impl,mxu,kernel", [("packed", "0", "ed25519_verify_packed"),
-                                              ("f32", "0", "ed25519_verify_f32"),
-                                              ("f32", "1", "ed25519_verify_f32_comb"),
-                                              ("int64", "1", "ed25519_verify_comb"),
-                                              ("int64", "0", "ed25519_verify")])
-def test_verify_commit_launches_the_chosen_kernel_once(cuda, monkeypatch, impl, mxu, kernel):
+@pytest.mark.parametrize("impl,mxu,fe_mxu,kernel", [
+    ("packed", "0", "1", "ed25519_verify_packed"), ("f32", "0", "0", "ed25519_verify_f32"),
+    ("f32", "1", "0", "ed25519_verify_f32_comb"), ("f32", "0", "1", "ed25519_verify_f32_mma"),
+    ("f32", "1", "1", "ed25519_verify_f32_mma_comb"), ("int64", "1", "1", "ed25519_verify_comb"),
+    ("int64", "0", "0", "ed25519_verify")])
+def test_verify_commit_launches_the_chosen_kernel_once(cuda, monkeypatch, impl, mxu, fe_mxu,
+                                                       kernel):
     monkeypatch.setenv("TM_CUDA_FIELD_IMPL", impl)
     monkeypatch.setenv("TM_CUDA_BASE_MXU", mxu)
+    monkeypatch.setenv("TM_CUDA_FE_MXU", fe_mxu)
     keys = testkit.validator_keys(seed=3, n=16)
     vals = testkit.validator_set(keys)
     commit = testkit.signed_commit(keys, vals, height=7)
@@ -225,3 +236,65 @@ def test_verify_commit_launches_the_chosen_kernel_once(cuda, monkeypatch, impl, 
     kernels.reset_launches()
     vals.verify_commit(testkit.CHAIN_ID, testkit.block_id_for(7), 7, commit)
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {kernel: 1}
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core fe_mul and the RLC kernels of every layout
+# ---------------------------------------------------------------------------
+
+def test_fe_mul_mma_kernel_matches_the_plain_matrix_unit_product(cuda):
+    """Rows at the contract's bounds and seeded ones, across blocks and a
+    ragged last warp: limb for limb the plain ``fe_mul_mxu``."""
+    a, b = (torch.from_numpy(x).to(cuda) for x in testkit.fe_mul_bound_limbs(seed=14, n_random=90))
+    before = kernels.LAUNCHES["fe_mul_mma"]
+    got = fe25519_f32.fe_mul_mxu_rows(a, b)
+    assert kernels.LAUNCHES["fe_mul_mma"] == before + 1
+    assert torch.equal(got, fe25519_f32.fe_mul_mxu(a.cpu(), b.cpu()).to(cuda))
+
+
+@pytest.mark.parametrize("impl,fe_mxu", sorted(kernels.RLC_KERNELS))
+def test_rlc_kernels_of_every_layout_match_plain(cuda, impl, fe_mxu):
+    """200 rows (four blocks, the last ragged) of a mixed and an honest
+    batch: the lanes sum to the plain version's, with the same prevalid
+    and decision; the layout's fold keeps the sum."""
+    name = kernels.RLC_KERNELS[(impl, fe_mxu)]
+    keys = testkit.validator_keys(seed=15, n=200)
+    msgs = [b"layout rlc %d" % i for i in range(200)]
+    pubs = [k.pub_key().bytes_() for k in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    mixed = testkit.mixed_batch(pubs, msgs, sigs, seed=16)[:3]
+    for triples, honest in ((mixed, False), ((pubs, msgs, sigs), True)):
+        rows, c_row = testkit.rlc_rows(ed25519_torch.prepare_batch(*triples), seed=17)
+        rows = ed25519_torch.rows_to_device(rows, cuda)
+        before = kernels.LAUNCHES[name]
+        lanes, prevalid = kernels.rlc(impl, fe_mxu)(*rows)
+        assert kernels.LAUNCHES[name] == before + 1
+        assert lanes.shape == (4, 4, kernels.LANE_LIMBS[impl][1])
+        plain, plain_prevalid = ed25519_torch.verify_core_rlc(*(t.cpu() for t in rows))
+        assert torch.equal(prevalid.cpu(), plain_prevalid)
+        kernel_pt = ed25519_torch.lanes_to_pt(lanes.cpu(), impl)
+        got = ed25519_torch._pt_reduce_to_lanes(kernel_pt, 1, impl)
+        want = ed25519_torch._pt_reduce_to_lanes(plain, 1)
+        assert ref.pt_equal(_lane_sum_of(got, impl), _lane_sum(want))
+        assert ed25519_torch.finalize_rlc(kernel_pt, c_row, impl) == honest
+
+
+def _lane_sum_of(lanes, impl) -> tuple:
+    int_from_limbs = ed25519_torch._FIELDS[impl].int_from_limbs
+    coords = [c.cpu().numpy() for c in lanes.astuple()]
+    total = ref.IDENTITY
+    for i in range(coords[0].shape[0]):
+        total = ref.pt_add(total, tuple(int_from_limbs(c[i]) % ref.P for c in coords))
+    return total
+
+
+@pytest.mark.parametrize("impl", ["packed", "f32"])
+def test_layout_folds_match_plain_lane_for_lane(cuda, impl):
+    lanes = torch.from_numpy(testkit.random_lanes(seed=18, n=301, impl=impl)).to(cuda)
+    name = kernels.FOLD_KERNELS[impl]
+    before = kernels.LAUNCHES[name]
+    folded = kernels.rlc_fold(lanes)
+    assert kernels.LAUNCHES[name] == before + 1
+    plain = ed25519_torch._pt_reduce_to_lanes(ed25519_torch.lanes_to_pt(lanes.cpu(), impl), 128,
+                                              impl)
+    assert torch.equal(folded.cpu().to(plain.x.dtype), torch.stack(plain.astuple(), dim=1))

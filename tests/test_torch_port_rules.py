@@ -89,10 +89,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.ed25519_rlc(rows, rows, rows, rows[:, :16].contiguous(), valid)
     with pytest.raises(ValueError, match="expected a tensor on"):
         kernels.rlc_fold(torch.zeros((130, 4, 5), dtype=torch.int64))
-    for impl, base_mxu in kernels.VERIFY_KERNELS:
+    for impl, base_mxu, fe_mxu in kernels.VERIFY_KERNELS:
         cpu_table = ed25519_torch.kernel_table(impl, base_mxu, torch.device("cpu"))
         with pytest.raises(ValueError, match="expected a tensor on"):
-            kernels.verify(impl, base_mxu)(rows, rows, rows, rows, valid, cpu_table)
+            kernels.verify(impl, base_mxu, fe_mxu)(rows, rows, rows, rows, valid, cpu_table)
+    for impl, fe_mxu in kernels.RLC_KERNELS:
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            kernels.rlc(impl, fe_mxu)(rows, rows, rows, rows[:, :16].contiguous(), valid)
+    for dtype, limbs in kernels.LANE_LIMBS.values():
+        with pytest.raises(ValueError, match="expected a tensor on"):
+            kernels.rlc_fold(torch.zeros((130, 4, limbs), dtype=dtype))
+    limbs = torch.zeros((4, 51), dtype=torch.float32)
+    with pytest.raises(ValueError, match="expected a tensor on"):
+        kernels.fe_mul_mma(limbs, limbs)
     for wrapper in (kernels.fe_ops_packed, kernels.fe_ops_f32):
         with pytest.raises(ValueError, match="expected a tensor on"):
             wrapper(rows, rows)
@@ -100,6 +109,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.comb_select(rows, torch.zeros(kernels.COMB_SHAPE, dtype=torch.uint8))
     with pytest.raises(ValueError, match="no verify kernel"):
         kernels.verify("packed", True)
+    with pytest.raises(ValueError, match="no verify kernel"):
+        kernels.verify("int64", False, True)
+    with pytest.raises(ValueError, match="no RLC kernel"):
+        kernels.rlc("packed", True)
     assert kernels.LAUNCHES == before
 
 
@@ -140,7 +153,8 @@ def test_library_name_hashes_headers_and_builds_only_cu(tmp_path, monkeypatch):
     shutil.copytree(kernels.CSRC, csrc)
     monkeypatch.setattr(kernels, "CSRC", csrc)
     assert [p.name for p in kernels._sources()] == [
-        "ed25519_rlc.cu", "ed25519_verify.cu", "ed25519_verify_f32.cu", "ed25519_verify_packed.cu"]
+        "ed25519_rlc.cu", "ed25519_rlc_f32.cu", "ed25519_verify.cu", "ed25519_verify_f32.cu",
+        "ed25519_verify_f32_mma.cu", "ed25519_verify_packed.cu"]
     first = kernels.library_path()
     assert first == kernels.library_path()
     header = csrc / "ed25519_common.cuh"
@@ -150,6 +164,26 @@ def test_library_name_hashes_headers_and_builds_only_cu(tmp_path, monkeypatch):
     source = csrc / "ed25519_rlc.cu"
     source.write_text(source.read_text() + "\n// edited\n")
     assert kernels.library_path() not in (first, second)
+
+
+def test_build_runs_one_compiler_per_source_and_logs_its_seconds(tmp_path, monkeypatch):
+    """build() with a stand-in nvcc that only writes its -o file: one
+    compile per .cu, each source's seconds in the library's log, and no
+    object or partial log left behind."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n'
+                    'echo "ptxas info    : Used 1 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
+    out = kernels.build()
+    log = out.with_suffix(".log").read_text()
+    seconds = kernels.compile_seconds(log)
+    assert sorted(seconds) == [p.name for p in kernels._sources()]
+    assert all(t >= 0 for t in seconds.values())
+    assert log.count("Used 1 registers") == len(seconds) + 1  # each compile and the link
+    assert sorted(p.name for p in out.parent.iterdir()) == sorted([out.name, out.name[:-3] + ".log"])
+    assert kernels.build() == out  # built once per set of sources
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
