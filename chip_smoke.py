@@ -19,16 +19,22 @@ field layout, multiply and comb (``TM_CUDA_FIELD_IMPL`` = packed, f32,
 int64, auto, ``TM_CUDA_FE_MXU`` and ``TM_CUDA_BASE_MXU``: every verify
 kernel), and last the RLC path in every layout (``ed25519_rlc_packed``,
 ``ed25519_rlc_f32``, ``ed25519_rlc_f32_mma`` and their folds), each with
-one fallback commit.  Keys, signatures and the RLC part check's z are
-made from seeds.  Every phase prints one JSON line with the seconds it
-took (``phase_s``; a ``seconds`` line sums them); any mismatch, refused
-gate or exception exits non-zero.  The last three lines are the card's
+one fallback commit.  After the kernel timing, the probes phase runs the
+port's device probes in-process (``tendermint_tpu_torch/benchmarks``:
+``roofline_probe --all``, ``kernel_bench --all`` and ``rlc_bench``), each
+probe kernel of ``csrc/probes.cu`` held against its plain version on the
+card.  Keys, signatures and the RLC part check's z are made from seeds.
+Every phase prints one JSON line with the seconds it took (``phase_s``; a
+``seconds`` line sums them); any mismatch, refused gate or exception
+exits non-zero.  The last three lines are the card's
 name and power limit, the kernels' table and
 ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py        # needs one CUDA device; no arguments
 
-Without a CUDA device it exits non-zero and prints no result.
+It runs from a checkout of the repository, from any working directory:
+the package ``tendermint_tpu_torch`` must lie beside the script.  Without
+it, or without a CUDA device, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -45,13 +51,16 @@ SEED = 20261017
 TIMED_RUNS = 6  # end-to-end runs per entry point; p50 over these
 KERNEL_RUNS = 20  # launches per kernel timing, each with its own CUDA events; p50
 SLOW_KERNEL_RUNS = 3  # the same for a kernel whose first launch took over 20 ms
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 # plain versions timed over 3 runs; the others take a second or more: one run
 PLAIN_TIMED_THRICE = ("fe_ops", "decompress", "fe_mul_mma")
-# per SM per clock, compute capability 9.0: 32-bit integer multiply-add,
-# FP32 fused multiply-add
-PIPE_PER_SM_PER_CLK = {"imad": 64, "ffma": 128}
-INT8_TENSOR_OPS_PER_S = 1.979e15  # H100 SXM dense int8 (data sheet)
+PROBE_REPS = 5  # timed launches per device probe; p50
+BENCH_REPS = 3  # timed launches per kernel_bench / rlc_bench kernel
+# each probe kernel's entry in the kernels' table: its (probe, kind) at the
+# original shape (ALL_CHAINS / ALL_PALLAS), and the TPU program it replaces
+PROBE_KERNELS = {"pl_i32mul": (("pallas", "pl_i32mul"), "benchmarks/roofline_probe.py:417"),
+                 "pl_femul8": (("pallas", "pl_femul8"), "benchmarks/roofline_probe.py:463"),
+                 "op_chain": (("chain", "i32mul"), "benchmarks/roofline_probe.py:229"),
+                 "fe_mul_chain": (("chain", "femul51"), "benchmarks/roofline_probe.py:229")}
 LAYOUT_RUNS = 4  # end-to-end runs per field-layout setting (in turns); p50
 MMA_LAYOUT_RUNS = 2  # the same for f32 with the tensor-core multiply (~200 ms a call)
 
@@ -78,33 +87,31 @@ def p50(xs) -> float:
     return statistics.median(xs)
 
 
-def nvidia_smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def sass_start(lib_path):
     """Starts cuobjdump on the built library in the background, writing its
     SASS beside the library; returns (process, that file)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    out = lib_path.with_suffix(".sass")
-    with open(out, "w") as f:
+    part = lib_path.with_suffix(".sass.part")
+    with open(part, "w") as f:
         proc = subprocess.Popen([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                                  str(lib_path)], stdout=f, stderr=subprocess.DEVNULL)
     atexit.register(proc.kill)  # a failed check exits before the summary waits for it
-    return proc, out
+    return proc, part
 
 
-def sass_summary(proc, path) -> dict:
-    """Per kernel of the built library: its SASS instruction count and the
-    instructions that carry the limb products and the spills (from
-    ``sass_start``'s cuobjdump)."""
+def sass_wait(proc, part) -> str:
+    """The SASS ``sass_start``'s cuobjdump wrote, once it is done; the file
+    becomes ``<library>.sass``, where ``roofline_probe.library_sass`` finds
+    it."""
     if proc.wait(timeout=300) != 0:
         raise RuntimeError(f"cuobjdump failed ({proc.returncode})")
-    sass = path.read_text()
-    path.unlink()
+    return part.replace(part.with_suffix("")).read_text()
+
+
+def sass_summary(sass: str) -> dict:
+    """Per kernel of the built library: its SASS instruction count and the
+    instructions that carry the limb products and the spills."""
     kinds = ("IMAD.WIDE.U32", "IMAD", "FFMA", "IMMA", "LDL", "STL")
     out, name = {}, None
     for line in sass.splitlines():
@@ -125,6 +132,13 @@ def sass_summary(proc, path) -> dict:
 
 
 def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "tendermint_tpu_torch")):
+        print(f"chip_smoke: the package tendermint_tpu_torch is not beside {here}: run the "
+              "script from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, here)
+
     import numpy as np
     import torch
 
@@ -132,8 +146,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-
     from tendermint_tpu_torch import testkit
+    from tendermint_tpu_torch.benchmarks import card as bench_card
+    from tendermint_tpu_torch.benchmarks import kernel_bench, rlc_bench, roofline_probe
     from tendermint_tpu_torch.crypto import ed25519 as ref
     from tendermint_tpu_torch.ops import ed25519_torch, fe25519, fe25519_f32, fe25519_packed, kernels
     from tendermint_tpu_torch.types.validator import CommitVerifyJob, batch_verify_commits
@@ -143,12 +158,10 @@ def main() -> int:
     # full float32: no TF32, in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi("name,power.limit")
+    card = bench_card.nvidia_smi("name,power.limit")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    pipe_per_s = {pipe: sms * rate * max_clock_mhz * 1e6
-                  for pipe, rate in PIPE_PER_SM_PER_CLK.items()}
-    pipe_per_s["int8_mma"] = INT8_TENSOR_OPS_PER_S
+    max_clock_mhz = bench_card.max_clock_mhz()
+    pipe_per_s = bench_card.pipe_rates(dev)
 
     def timed_kernel_ms(fn) -> float:
         """p50 device time of one launch over KERNEL_RUNS launches (
@@ -188,11 +201,11 @@ def main() -> int:
 
     def bound_ms(kernel: str, n: int, nbytes: int) -> tuple[float, str]:
         if kernel == "comb_select":  # 32 one-hot [n, 256] x [256, 128] int8 products
-            ops_ms = n * 32 * 256 * 128 * 2 / INT8_TENSOR_OPS_PER_S * 1e3
+            ops_ms = n * 32 * 256 * 128 * 2 / kernels.INT8_TENSOR_OPS_PER_S * 1e3
         else:  # the slowest pipe (an mma kernel: its FFMA or its int8 mma)
             ops_ms = max(count / pipe_per_s[pipe] * 1e3
                          for pipe, count in kernels.operations(kernel, n).items())
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / kernels.HBM_BYTES_PER_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
     # the per-row path in 5 x 51-bit limbs first, whatever the caller's
@@ -206,7 +219,7 @@ def main() -> int:
     lib_path = kernels.build()
     build_s = time.perf_counter() - t0
     kernels.library()
-    sass = sass_start(lib_path)  # read at the end: cuobjdump runs beside the checks
+    sass_job = sass_start(lib_path)  # read later: cuobjdump runs beside the checks
     build_log = lib_path.with_suffix(".log").read_text()
     ptxas = [line.strip() for line in build_log.splitlines()
              if "Compiling entry" in line or "registers" in line or "spill" in line]
@@ -478,6 +491,55 @@ def main() -> int:
          slow_kernel_runs=SLOW_KERNEL_RUNS,
          mixed_rejected=mwant.count(False),
          kernels={f"{name}@{n}": t for (name, n), t in timing.items()})
+
+    # -- 8b. the device probes (tendermint_tpu_torch/benchmarks) ------------
+    # roofline_probe --all's work in-process: the census, every chain and
+    # Pallas probe at its original shape and at eight waves (each probe's
+    # first launch held against its plain version on the card, exactly;
+    # pl_femul8, femul8 and femul51 also mod p against big-int on a sample
+    # of lanes),
+    # the roofline line on the verify kernels' times of phase 8; then
+    # kernel_bench --all and rlc_bench on their default batch.  The probe
+    # kernels' launches are counted over this phase alone: the probe path.
+    sass = sass_wait(*sass_job)
+    kernels.reset_launches()
+    probe_lines = roofline_probe.run_all(
+        reps=PROBE_REPS, sass=sass,
+        verify_ms={name: timing[(name, 10_000)]["ms"]
+                   for name in roofline_probe.ROOFLINE_KERNELS.values()})
+    bench_lines = [kernel_bench.run_bench(impl, reps=BENCH_REPS, base_mxu=base_mxu,
+                                          fe_mxu=fe_mxu)
+                   for impl, base_mxu, fe_mxu in sorted(kernels.VERIFY_KERNELS)]
+    bench_lines.append(rlc_bench.run_rlc_bench(reps=BENCH_REPS))
+    probe_launches = {name: kernels.LAUNCHES[name] for name in PROBE_KERNELS}
+    check(all(probe_launches.values()), f"the probe path left a kernel unlaunched: "
+                                        f"{probe_launches}")
+    for line in probe_lines + bench_lines:
+        print(json.dumps(line), flush=True)
+    check(all(line.get("agree", True) for line in probe_lines), "a field-multiply probe "
+          "disagrees with big-int arithmetic")
+    check(all(line["verify_ok"] for line in bench_lines[:-1]), "kernel_bench: wrong verdicts")
+    check(bench_lines[-1]["rlc_ok"] and bench_lines[-1]["mixed_verdicts_exact"],
+          "rlc_bench: the RLC path is wrong")
+    probe_timing = {}
+    for name, ((probe, kind), _) in PROBE_KERNELS.items():
+        errs[name] = max(line["max_abs_err"] for line in probe_lines
+                         if line["probe"] in ("chain", "pallas")
+                         and roofline_probe.PROBE_KINDS[line["kind"]][0] == name)
+        lines = [line for line in probe_lines
+                 if line["probe"] == probe and line["kind"] == kind]
+        first, widest = lines[0], lines[-1]
+        probe_timing[name] = {
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": "bytes" if first["pipe"] == "bytes" else "operations",
+            "pipe": first["pipe"], "pipe_share": first["pipe_share"],
+            "sass_bound_ms": first["sass_bound_ms"], "max_abs_err": errs[name],
+            "library_ms": None, "probe": f"{probe} {kind} {first['rows']}x{first['lanes']} "
+                                         f"chain {first['chain']}",
+            "saturating": {k: widest[k] for k in ("rows", "lanes", "ms", "bound_ms", "pipe",
+                                                  "pipe_share", "sass_bound_ms", "waves")}}
+    emit("probes", card=card, launches=probe_launches, probes=len(probe_lines),
+         benches=len(bench_lines))
 
     # -- 9. the RLC kernels and folds of every layout against their plain
     # versions.  The RLC equation's inputs with z from the seed, on the mixed
@@ -806,7 +868,8 @@ def main() -> int:
                "ed25519_verify_f32_mma": "fe_f32_mma.cuh",
                "ed25519_verify_f32_mma_comb": "fe_f32_mma.cuh", "fe_mul_mma": "fe_f32_mma.cuh",
                **dict.fromkeys((*kernels.RLC_KERNELS.values(), *kernels.FOLD_KERNELS.values()),
-                               "ed25519_rlc.cuh")}
+                               "ed25519_rlc.cuh"),
+               **dict.fromkeys(PROBE_KERNELS, "probes.cu")}
     replaces = {"ed25519_verify": "tendermint_tpu/ops/ed25519_jax.py:529",
                 "ed25519_verify_comb": "tendermint_tpu/ops/ed25519_jax.py:328",
                 "ed25519_verify_packed": "tendermint_tpu/ops/ed25519_jax.py:529",
@@ -826,13 +889,16 @@ def main() -> int:
                 "ed25519_rlc_f32_mma": "tendermint_tpu/ops/ed25519_jax.py:701",
                 "rlc_fold": "tendermint_tpu/ops/ed25519_jax.py:390",
                 "rlc_fold_packed": "tendermint_tpu/ops/ed25519_jax.py:390",
-                "rlc_fold_f32": "tendermint_tpu/ops/ed25519_jax.py:390"}
+                "rlc_fold_f32": "tendermint_tpu/ops/ed25519_jax.py:390",
+                **{name: at for name, (_, at) in PROBE_KERNELS.items()}}
     table_line = [{"name": name, "route": "cuda", "source": csrc + sources[name],
-                   "replaces": replaces[name], "launches": main_launches[name],
-                   **{k: v for k, v in timing[(name, 10_000)].items() if k != "lanes"},
+                   "replaces": replaces[name],
+                   "launches": probe_launches.get(name, main_launches[name]),
+                   **{k: v for k, v in (probe_timing.get(name) or timing[(name, 10_000)]).items()
+                      if k != "lanes"},
                    "max_abs_err": errs[name]}
                   for name in replaces]
-    emit("sass", kernels=sass_summary(*sass))
+    emit("sass", kernels=sass_summary(sass))
     emit("seconds", build_s=build_s, total_s=sum(PHASE_S.values()), phase_s=dict(PHASE_S))
     print(card, flush=True)
     print(json.dumps({"kernels": table_line}), flush=True)

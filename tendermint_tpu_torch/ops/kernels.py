@@ -28,7 +28,10 @@ the RLC kernels of every layout and their folds, ``ed25519_rlc``,
 ``rlc_fold_f32`` (``csrc/ed25519_rlc_f32.cu``), all instances of
 ``csrc/ed25519_rlc.cuh``.  Every source includes the curve pipeline of
 ``csrc/ed25519_common.cuh``; the comb's tensor-core selection is
-``csrc/base_comb.cuh``.
+``csrc/base_comb.cuh``.  The device probes ``pl_i32mul``, ``op_chain``,
+``pl_femul8`` and ``fe_mul_chain`` (``csrc/probes.cu``) are chains of one
+operation that ``benchmarks/roofline_probe.py`` times; no verify path
+launches them.
 """
 
 from __future__ import annotations
@@ -57,7 +60,8 @@ LAUNCHES = {name: 0 for name in (
     "ed25519_verify_f32_comb", "ed25519_verify_f32_mma", "ed25519_verify_f32_mma_comb",
     "fe_ops", "fe_ops_packed", "fe_ops_f32", "fe_mul_mma", "decompress", "comb_select",
     "ed25519_rlc", "ed25519_rlc_packed", "ed25519_rlc_f32", "ed25519_rlc_f32_mma",
-    "rlc_fold", "rlc_fold_packed", "rlc_fold_f32")}
+    "rlc_fold", "rlc_fold_packed", "rlc_fold_f32",
+    "pl_i32mul", "op_chain", "pl_femul8", "fe_mul_chain")}
 
 # (field layout, comb, tensor-core fe_mul) -> verify kernel
 VERIFY_KERNELS = {("int64", False, False): "ed25519_verify",
@@ -73,6 +77,15 @@ RLC_KERNELS = {("int64", False): "ed25519_rlc", ("packed", False): "ed25519_rlc_
 FOLD_KERNELS = {"int64": "rlc_fold", "packed": "rlc_fold_packed", "f32": "rlc_fold_f32"}
 # field layout -> the dtype and limb count of a lane coordinate the RLC kernels write
 LANE_LIMBS = {"int64": (torch.int64, 5), "packed": (torch.int32, 10), "f32": (torch.float32, 51)}
+
+# op_chain's kinds (the chain kinds of the JAX package's roofline probe) ->
+# (dtype, mask, kind code of tm_op_chain): floor and i32mul are pl_i32mul's
+# x = (x * y) & 255, i64mul x = (x * y) & mask, i64add x = (x + y) & mask,
+# f32mul x = x * y.  Integer inputs lie in [0, mask].
+OP_CHAIN_KINDS = {"floor": (torch.int32, 255, 0), "i32mul": (torch.int32, 255, 0),
+                  "i64mul": (torch.int64, (1 << 17) - 1, 1),
+                  "i64add": (torch.int64, (1 << 17) - 1, 2), "f32mul": (torch.float32, 0, 3)}
+FEMUL8_LIMBS = 32  # pl_femul8's limbs of 8 bits
 
 RLC_THREADS = 64  # rows per block of ed25519_rlc; each block writes one lane
 RLC_MAX_LANES = 128  # rlc_fold folds the lanes to this many or fewer
@@ -198,6 +211,25 @@ def operations(kernel: str, n: int) -> dict[str, int]:
     return {"ffma": per_mul * muls + per_sq * sqs, "int8_mma": MMA_MUL_INT8_OPS * muls}
 
 
+# The card's peak rates the bounds are priced with (H100 SXM): device
+# memory, and per SM per clock, compute capability 9.0 (CUDA C programming
+# guide's throughput table), the 32-bit integer multiply-add (IMAD), the
+# FP32 multiply and fused multiply-add, and the 32-bit integer add,
+# logical, shift and compare; dense int8 on the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PIPE_PER_SM_PER_CLK = {"imad": 64, "ffma": 128, "alu": 64}
+INT8_TENSOR_OPS_PER_S = 1.979e15
+
+
+def pipe_rates(sms: int, clock_mhz: float) -> dict[str, float]:
+    """Instructions per second of each pipe on `sms` SMs at `clock_mhz`,
+    and the int8 tensor-core operations."""
+    rates = {pipe: sms * per_clk * clock_mhz * 1e6
+             for pipe, per_clk in PIPE_PER_SM_PER_CLK.items()}
+    rates["int8_mma"] = INT8_TENSOR_OPS_PER_S
+    return rates
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -306,7 +338,10 @@ def library() -> ctypes.CDLL:
         getattr(lib, f"tm_{name}").argtypes = [p, p, p, p, p, p, p, i, p]
     for name in FOLD_KERNELS.values():
         getattr(lib, f"tm_{name}").argtypes = [p, p, i, p]
-    for name in LAUNCHES:
+    lib.tm_op_chain.argtypes = [p, p, p, i, i, i, ctypes.c_longlong, p]
+    lib.tm_pl_femul8.argtypes = [p, p, p, i, i, i, p]
+    lib.tm_fe_mul_chain.argtypes = [p, p, p, i, i, p]
+    for name in LAUNCHES.keys() - {"pl_i32mul"}:  # pl_i32mul launches through tm_op_chain
         getattr(lib, f"tm_{name}").restype = ctypes.c_int
     return lib
 
@@ -575,3 +610,59 @@ def rlc_fold(lanes):
         _raise_on(err, kernel)
         LAUNCHES[kernel] += 1
     return work[:reduced_width(p, RLC_MAX_LANES)]
+
+
+def _chain(kernel: str, x, y, chain: int, dtype: torch.dtype, shape: tuple, n: int, *args,
+           entry: str | None = None):
+    """One launch of a probe kernel on x, y (`dtype`, `shape`, n threads),
+    through ``tm_<entry>`` (by default ``tm_<kernel>``) and counted under
+    `kernel`: `chain` steps of its operation, into a new tensor like x;
+    `args` go between the chain length and the stream."""
+    dev = x.device
+    _check(x, "x", dtype, shape, dev)
+    _check(y, "y", dtype, shape, dev)
+    if chain < 0:
+        raise ValueError(f"{kernel}: chain must be >= 0, got {chain}")
+    out = torch.empty_like(x)
+    if n:
+        with torch.cuda.device(dev):
+            err = getattr(library(), f"tm_{entry or kernel}")(
+                x.data_ptr(), y.data_ptr(), out.data_ptr(), n, chain, *args, _stream(dev))
+        _raise_on(err, kernel)
+        LAUNCHES[kernel] += 1
+    return out
+
+
+def pl_i32mul(x, y, chain: int):
+    """`chain` steps of x = (x * y) & 255 on int32 [rows, 128], values in
+    [0, 255]: the JAX package's Pallas probe ``pl_i32mul``, launched as
+    op_chain's i32mul instance and counted as ``pl_i32mul``."""
+    _, mask, code = OP_CHAIN_KINDS["i32mul"]
+    return _chain("pl_i32mul", x, y, chain, torch.int32, (x.shape[0], 128), x.numel(), code,
+                  mask, entry="op_chain")
+
+
+def op_chain(kind: str, x, y, chain: int):
+    """`chain` steps of the operation of `kind` (``OP_CHAIN_KINDS``) on
+    x, y of its dtype, any shape."""
+    try:
+        dtype, mask, code = OP_CHAIN_KINDS[kind]
+    except KeyError:
+        raise ValueError(f"no op_chain kind {kind!r}") from None
+    return _chain("op_chain", x, y, chain, dtype, tuple(x.shape), x.numel(), code, mask)
+
+
+def pl_femul8(x, y, chain: int, limb_major: bool = True):
+    """`chain` steps of x = fe_mul8(x, y), limbs of 8 bits (int32, each
+    < 2^10) in the limb-major layout [32, N] of the JAX package's Pallas
+    probe ``pl_femul8`` or, with `limb_major` False, row-major [N, 32]
+    (its chain probe ``femul8``)."""
+    n = x.shape[-1] if limb_major else x.shape[0]
+    shape = (FEMUL8_LIMBS, n) if limb_major else (n, FEMUL8_LIMBS)
+    return _chain("pl_femul8", x, y, chain, torch.int32, shape, n, int(limb_major))
+
+
+def fe_mul_chain(x, y, chain: int):
+    """`chain` steps of x = fe_mul(x, y), the 5 x 51-bit multiply of the
+    verify kernels, on int64 [N, 5] limbs (each < 2^52)."""
+    return _chain("fe_mul_chain", x, y, chain, torch.int64, (x.shape[0], 5), x.shape[0])

@@ -154,7 +154,7 @@ def test_library_name_hashes_headers_and_builds_only_cu(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC", csrc)
     assert [p.name for p in kernels._sources()] == [
         "ed25519_rlc.cu", "ed25519_rlc_f32.cu", "ed25519_verify.cu", "ed25519_verify_f32.cu",
-        "ed25519_verify_f32_mma.cu", "ed25519_verify_packed.cu"]
+        "ed25519_verify_f32_mma.cu", "ed25519_verify_packed.cu", "probes.cu"]
     first = kernels.library_path()
     assert first == kernels.library_path()
     header = csrc / "ed25519_common.cuh"
