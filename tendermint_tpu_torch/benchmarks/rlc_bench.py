@@ -1,7 +1,7 @@
 """Device benchmark of the RLC batch-verification path: the RLC kernel of a
-field layout and, above 128 lanes, its fold (``ops/kernels.rlc(impl,
-fe_mxu)`` + ``rlc_fold``), against the per-row verify kernel of the same
-layout on the same all-valid batch.  Counterpart of the JAX package's
+field layout (``ops/kernels.rlc(impl, fe_mxu)``, its three launches),
+against the per-row verify kernel of the same layout on the same
+all-valid batch.  Counterpart of the JAX package's
 ``benchmarks/rlc_bench.py``.
 
 Device times come from CUDA events around the launches alone (the
@@ -61,10 +61,7 @@ def run_rlc_bench(impl: str = "int64", batch: int = 16384, reps: int = 5,
         rlc, row = kernels.rlc(impl, fe_mxu), kernels.verify(impl, False, fe_mxu)
 
         def rlc_fn():
-            lanes, prevalid = rlc(*rlc_in)
-            if lanes.shape[0] > kernels.RLC_MAX_LANES:
-                lanes = kernels.rlc_fold(lanes)
-            return lanes, prevalid
+            return rlc(*rlc_in)
 
         prevalid = rlc_fn()[1]
         row(*row_in, table)

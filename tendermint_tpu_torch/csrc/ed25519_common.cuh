@@ -491,17 +491,6 @@ TM_DEV bool verify_row(const uint8_t* pub, const uint8_t* r, const uint8_t* s, c
     return valid && ok_a && ok_r && id;
 }
 
-// The same row with [s]B given (by the comb, base_comb.cuh).
-template <class E>
-TM_DEV bool verify_row_from_base(const point<E>& sb, const uint8_t* pub, const uint8_t* r,
-                                 const uint8_t* k, bool valid) {
-    point<E> a_pt, r_pt;
-    bool ok_a = decompress(a_pt, pub);
-    bool ok_r = decompress(r_pt, r);
-    bool id = verdict(sb, a_pt, r_pt, k);
-    return valid && ok_a && ok_r && id;
-}
-
 // The fe_ops part check: canonical a*b, a^2 and a^((p-5)/8).
 template <class E>
 TM_DEV void fe_ops_row(const uint8_t* a_enc, const uint8_t* b_enc, uint8_t* out_mul,

@@ -4,125 +4,185 @@
 //   [8]( [c]B - sum_i [z_i k_i](A_i) - sum_i [z_i](R_i) ) == O,
 //   c = sum_i z_i s_i mod L, z_i random 128-bit.
 //
-// Two kernels, each a template over the field element E (5 x 51-bit fe,
-// packed fp, f32 ff, or f32 with the tensor-core fe_mul ffm), as
-// ed25519_common.cuh's pipeline is:
+// ed25519_rlc replaces `_Core.verify_core_rlc` of
+// tendermint_tpu/ops/ed25519_jax.py:422, the program `_compiled_rlc(n,
+// impl)` (:701) builds for impl int64 (entry ed25519_rlc), packed
+// (ed25519_rlc_packed), f32 (ed25519_rlc_f32) and f32 with the matrix-unit
+// fe_mul (ed25519_rlc_f32_mma): a template over the field element E, as
+// ed25519_common.cuh's pipeline is.  It writes 64 lanes, one per window
+// (TM_RLC_WINDOWS), whose sum is sum_i [z_i k_i](-A_i) + [z_i](-R_i)
+// ([zk](-A), never [L-zk]A, which differs on points with a torsion part),
+// as X, Y, Z, T in E's limbs, and prevalid = valid && A, R on the curve
+// per row.  The host adds
+// the lanes, adds [c]B and applies the [8] (finalize_rlc in
+// ops/ed25519_torch.py).
 //
-//   ed25519_rlc  replaces `_Core.verify_core_rlc` of
-//                tendermint_tpu/ops/ed25519_jax.py:422, the program
-//                `_compiled_rlc(n, impl)` (:701) builds for impl int64
-//                (entry ed25519_rlc), packed (ed25519_rlc_packed), f32
-//                (ed25519_rlc_f32) and f32 with the matrix-unit fe_mul
-//                (ed25519_rlc_f32_mma).  Each block of TM_RLC_THREADS
-//                rows, one thread per row, writes one lane: its rows'
-//                part of sum_i [z_i k_i](-A_i) + [z_i](-R_i), as X, Y, Z,
-//                T in E's limbs.  Each row also gets prevalid = valid &&
-//                A, R on the curve.
-//   rlc_fold     replaces `_pt_reduce_to_lanes(acc, 128)` (:390, called at
-//                :516): folds the lanes pairwise to at most 128, in the
-//                same pairing, so the host's big-int finish stays short
-//                (entries rlc_fold, rlc_fold_packed, rlc_fold_f32).
-//                Blocks run in no order and cannot carry the accumulator
-//                between them, so the fold is a pass of its own: one
-//                block, levels separated by __syncthreads.  The f32 lanes
-//                of both f32 kernels fold with the FFMA fe_mul: the two
-//                multiplies give the same limbs, and the fold takes about
-//                0.14 ms on 157 lanes (H100).
+// rlc_fold replaces `_pt_reduce_to_lanes(acc, 128)` (:390): it folds
+// lanes pairwise to at most 128 in the JAX pairing, one block, levels
+// separated by __syncthreads.  ed25519_rlc writes 64 lanes, so the RLC
+// path no longer needs it; it stays as a ported kernel (entries rlc_fold,
+// rlc_fold_packed, rlc_fold_f32).
 //
-// The host adds the lanes, adds [c]B and applies the [8] (finalize_rlc in
-// ops/ed25519_torch.py).  The lanes of all blocks add up to the JAX
-// program's one accumulator because doubling distributes over the sum.
+// The schedule: a bucket (Pippenger) method over the whole batch, radix
+// 16.  z*k < L has 63 nibbles (the 64th is 0) and z 32, so window w holds
+// digit w of every row's z*k against -A_i and, for w < 32, digit w of z
+// against -R_i; a row that is not prevalid contributes nothing (the
+// identity).  Window w's sum is sum_j j * B_wj over the buckets j = 1..15,
+// B_wj the sum of the points whose digit there is j, and the result is
+// sum_w [16^w] (window w's sum).  Three launches:
 //
-// Per row: decompress A and R, then 16-entry tables of -A and -R (14
-// complete additions each; [zk](-A), never [L-zk]A, which differs on
-// points with a torsion part).  A row that is not prevalid selects digit
-// 0, the identity, in every window.  Per window w = 63..0 each thread
-// writes its row's term tblA[zk_w] (+ tblR[z_w] for w < 32: z has 32
-// digits) to shared memory; the block sums the terms by a tree of
-// complete additions, and thread 0 keeps the block's accumulator by
-// Horner's rule, acc = [16]acc + sum.  A row past N runs row 0 with
-// prevalid false, so it adds the identity.
+//   0. points   one thread per point (A_i, then R_i): decompress, store
+//               -A_i, -R_i and the on-curve flag into scratch, and the
+//               point's digits as 96 planes of N bytes (64 of z*k, 32 of
+//               z), so that a warp reads one digit of 32 rows at once.
+//   1. buckets  one warp per task (window w, bucket j, split r of at most
+//               16,384 rows): it scans the split's digits, eight steps of
+//               32 rows at a time with every load in flight at once,
+//               queues the points whose digit is j in a ring in shared
+//               memory and, each time 32 are queued, every lane adds one,
+//               so the lanes share a bucket's points evenly whatever the
+//               digits' skew; then a tree over the lanes (shuffles) gives
+//               B, and [j]B by double-and-add (j is the same in every
+//               lane).  An empty task writes the identity and skips all
+//               point work.
+//   2. windows  one warp per window: the lanes sum the window's task
+//               values, a tree over the lanes, then 4w doublings; lane w
+//               of the output.  It also writes prevalid.
 //
-// Every lane of a warp takes part in each addition its warp makes, as the
-// warp-collective fe_mul (fe_f32_mma.cuh) needs, in every layout (a warp
-// spends the same issue slots on masked lanes): at a tree level the lanes
-// of an active warp that add nothing add their own slot to itself and
-// discard the sum, and all of warp 0 runs the Horner step on the same
-// values, thread 0 keeping it.  Warps with no lane to add sit the level
-// out.
+// Reckoning at N = 10,000 (point operations; a field operation is a
+// multiply or squaring, an addition 9 multiplies, a doubling 7-8):
+//   * per-row verify: ~420 point operations a row in one thread, a chain
+//     of ~3,700 field operations;
+//   * the Straus scheme this replaces (a block of 64 rows walks 64
+//     windows: a term per row, a tree over the block's terms, Horner
+//     [16]acc + sum in warp 0 alone): 60 additions a row for the two
+//     16-entry tables and the R terms, 63 a row for the trees, 1.23
+//     million additions in all, and a chain of 64 x (6 tree levels + 4
+//     doublings + 1 addition) = 704 point operations (~6,000 field
+//     operations), most of it in one warp while the other waits;
+//   * the same scheme split by windows: the same 1.24 million additions
+//     (the tables stay), and each split's partial sums still need their
+//     [16^w] afterwards, so the chain keeps its ~250 doublings;
+//   * this bucket method: ~90 additions a row (one per nonzero digit, no
+//     tables), ~0.9 million in all, plus [j] (at most 6 operations) for
+//     each of the 64 x 15 = 960 tasks and 8,064 doublings in the windows'
+//     launch.  Chain: a decompression (275 field operations); a task of
+//     window w < 32 (~1,250 points, 39 additions a lane) + 5 tree levels
+//     + [j], ~50 point operations; then 5 tree levels and 248 doublings
+//     in window 62: ~2,500 field operations, 0.7 of the per-row verify's.
+//     The 248 doublings are the floor of any method: [16^62] must reach
+//     window 62's sum.
 //
-// What bounds it: the field multiplies, as in the verify kernels.  The
-// design trades the per-row doubling ladder (252 doublings a row) for a
-// serial chain per block of 64 x (4 doublings + log2(64) tree levels + 1
-// addition), which one thread's latency sets; more rows per thread, a
-// bucket method and fewer tree levels are later work.  Memory per thread:
-// the two tables, 32 points in local memory (160 bytes each in 5 x 51 or
-// packed limbs, 816 in f32); shared memory: one point per thread for the
-// tree, dynamic (52,224 bytes for f32, past the 48 KiB a static array may
-// take).
+// What bounds it on this card: latency.  The buckets kernel in 5 x 51-bit
+// limbs holds 248 registers a thread, so an SM keeps 8 of its warps, and
+// 960 tasks at 10,000 rows are one round of them: more, smaller tasks
+// (the splits of 2,048 rows first tried) only repeat each task's tree and
+// [j].  Then the windows' doubling chain, which only its length sets.
+// The design gives every warp work for its whole run: no block has a
+// phase in which one warp runs while another waits (the buckets' and the
+// windows' warps are independent; their trees are within a warp), and a
+// bucket's points are shared evenly by its lanes.  Nothing is kept in
+// per-thread tables: the points live in scratch that the wrapper
+// allocates (torch.empty), and no launch uses dynamic shared memory.
+// Under the warp-collective fe_mul (ffm) every lane calls every field
+// operation: the branches around point operations (a full batch queued,
+// the task empty, the digit j, the window empty) are the same in every
+// lane of a warp, and lanes with nothing to add add the identity.
 //
 // This header holds the kernels as templates; ed25519_rlc.cu instantiates
 // them for the 5 x 51-bit and packed layouts, ed25519_rlc_f32.cu for f32
 // with either multiply (two sources, so that nvcc builds them at once).
 // Like ed25519_verify.cu it compiles as plain C++ without __CUDACC__; the
 // host entry points (TM_RLC_ENTRY, TM_FOLD_ENTRY) run the same device
-// functions over the same block partition, serially, on the CPU.
+// functions over the same tasks, lanes and trees, serially, on the CPU.
 
 #ifndef TM_ED25519_RLC_CUH
 #define TM_ED25519_RLC_CUH
 
 #include "ed25519_common.cuh"
 
-#define TM_RLC_THREADS 64    // rows per block of ed25519_rlc, one lane per block
+#define TM_RLC_WINDOWS 64     // radix-16 digits of z*k; the output has a lane per window
+#define TM_RLC_Z_WINDOWS 32   // radix-16 digits of z
+#define TM_RLC_PLANES (TM_RLC_WINDOWS + TM_RLC_Z_WINDOWS)
+#define TM_RLC_BUCKETS 15     // digits 1..15; digit 0 adds nothing
+#ifndef TM_RLC_SPLIT_ROWS
+#define TM_RLC_SPLIT_ROWS 16384  // rows per bucket task, at most (ops/kernels.RLC_SPLIT_ROWS)
+#endif
+#define TM_RLC_SCAN_STEPS 8    // rows a lane reads before the warp queues them
+#define TM_RLC_RING 1024  // a warp's queue, a power of 2 above twice 31 + 32 x TM_RLC_SCAN_STEPS
+#define TM_RLC_POINT_THREADS 64
+#define TM_RLC_TASK_WARPS 2   // warps per block of the buckets launch
 #define TM_RLC_MAX_LANES 128  // rlc_fold's target width
 #define TM_RLC_FOLD_THREADS 128
 
-// The 16 multiples [0..15]p (14 additions).
-template <class E>
-TM_DEV void table16(point<E>* tbl, const point<E>& p) {
-    tbl[0] = pt_identity<E>();
-    tbl[1] = p;
-    for (int j = 2; j < 16; ++j) tbl[j] = pt_add(tbl[j - 1], p);
-}
+#ifdef __CUDACC__
+#define TM_HOST_DEV __host__ __device__ __forceinline__
+#else
+#define TM_HOST_DEV static inline
+#endif
 
-template <class E>
-struct rlc_tables {
-    point<E> a[16];  // [j](-A)
-    point<E> r[16];  // [j](-R)
+TM_HOST_DEV int rlc_splits(int n) {
+    return n > TM_RLC_SPLIT_ROWS ? (n + TM_RLC_SPLIT_ROWS - 1) / TM_RLC_SPLIT_ROWS : 1;
+}
+TM_HOST_DEV int rlc_tasks(int n) { return TM_RLC_WINDOWS * TM_RLC_BUCKETS * rlc_splits(n); }
+
+// Task g: window w, digit j and rows [lo, hi); a window's tasks are
+// consecutive.
+struct rlc_task {
+    int w, j, lo, hi;
 };
 
-// Decompress A and R and build their tables; returns prevalid.
-template <class E>
-TM_DEV bool rlc_row_prepare(rlc_tables<E>& tbl, const uint8_t* pub, const uint8_t* r,
-                            bool valid) {
-    point<E> a_pt, r_pt;
-    bool ok_a = decompress(a_pt, pub);
-    bool ok_r = decompress(r_pt, r);
-    table16(tbl.a, pt_neg(a_pt));
-    table16(tbl.r, pt_neg(r_pt));
-    return valid && ok_a && ok_r;
+TM_DEV rlc_task rlc_task_of(int g, int n) {
+    const int splits = rlc_splits(n), per = TM_RLC_BUCKETS * splits;
+    const int rem = g % per, r = rem % splits;
+    rlc_task t = {g / per, 1 + rem / splits, (int)((long long)r * n / splits),
+                  (int)((long long)(r + 1) * n / splits)};
+    return t;
 }
 
-// The row's term in window w: [zk_w](-A), plus [z_w](-R) for w < 32.
+// Point p of the batch (A_p for p < n, else R_{p-n}): -P into `neg`, and
+// its digits into the planes (z*k's for A, z's for R).  Returns whether P
+// is on the curve.
 template <class E>
-TM_DEV point<E> rlc_row_term(const rlc_tables<E>& tbl, const uint8_t* zk, const uint8_t* z,
-                             bool live, int w) {
-    point<E> term = tbl.a[live ? nibble(zk, w) : 0];
-    if (w < 32) term = pt_add(term, tbl.r[live ? nibble(z, w) : 0]);
-    return term;
+TM_DEV bool rlc_point(point<E>& neg, uint8_t* planes, const uint8_t* pub, const uint8_t* r,
+                      const uint8_t* zk, const uint8_t* z, int p, int n, bool store) {
+    const bool is_r = p >= n;
+    const int row = is_r ? p - n : p;
+    point<E> pt;
+    const bool ok = decompress(pt, (is_r ? r : pub) + (size_t)row * 32);
+    neg = pt_neg(pt);
+    if (store) {
+        if (is_r)
+            for (int w = 0; w < TM_RLC_Z_WINDOWS; ++w)
+                planes[(size_t)(TM_RLC_WINDOWS + w) * n + row] = nibble(z + (size_t)row * 16, w);
+        else
+            for (int w = 0; w < TM_RLC_WINDOWS; ++w)
+                planes[(size_t)w * n + row] = nibble(zk + (size_t)row * 32, w);
+    }
+    return ok;
 }
 
-// acc = [16]acc + sum: 4 doublings (T only on the last), 1 addition.
-template <class E>
-TM_DEV point<E> rlc_horner(const point<E>& acc, const point<E>& sum) {
-    point<E> a = pt_dbl(acc, false);
-    a = pt_dbl(a, false);
-    a = pt_dbl(a, false);
-    a = pt_dbl(a, true);
-    return pt_add(a, sum);
+TM_DEV bool rlc_prevalid(const uint8_t* valid, const uint8_t* okf, int i, int n) {
+    return valid[i] && okf[i] && okf[n + i];
 }
 
-// Lane layout: X, Y, Z, T, field<E>::N limbs each, as the fixed-base table.
+// [j]b for a digit j in 1..15, most significant bit first; T is formed
+// only where an addition or the end follows.
+template <class E>
+TM_DEV point<E> rlc_times_digit(const point<E>& b, int j) {
+    int top = 3;
+    while (!((j >> top) & 1)) --top;
+    point<E> v = b;
+    for (int bit = top - 1; bit >= 0; --bit) {
+        const bool add = (j >> bit) & 1;
+        v = pt_dbl(v, add || bit == 0);
+        if (add) v = pt_add(v, b);
+    }
+    return v;
+}
+
+// Point layout in scratch and in the lanes: X, Y, Z, T, field<E>::N limbs
+// each.
 template <class E>
 TM_DEV point<E> lane_load(const typename field<E>::limb* lanes, int i) {
     const int n = field<E>::N;
@@ -155,46 +215,155 @@ TM_DEV void lane_store(typename field<E>::limb* lanes, int i, const point<E>& p)
 
 #ifdef __CUDACC__
 
-extern __shared__ __align__(16) unsigned char tm_rlc_terms[];  // point<E>[TM_RLC_THREADS]
+#define TM_FULL_MASK 0xffffffffu
 
+// Lane + s's point (a lane past 31 keeps its own).
 template <class E>
-__global__ void __launch_bounds__(TM_RLC_THREADS)
-ed25519_rlc_kernel(const uint8_t* __restrict__ pub, const uint8_t* __restrict__ r,
-                   const uint8_t* __restrict__ zk, const uint8_t* __restrict__ z,
-                   const uint8_t* __restrict__ valid, typename field<E>::limb* __restrict__ lanes,
-                   uint8_t* __restrict__ prevalid, int n) {
-    point<E>* terms = reinterpret_cast<point<E>*>(tm_rlc_terms);
-    const int tid = threadIdx.x;
-    const int i = blockIdx.x * TM_RLC_THREADS + tid;
-    const bool real = i < n;
-    const size_t row = real ? i : 0;
-    rlc_tables<E> tbl;
-    const bool live =
-        rlc_row_prepare(tbl, pub + row * 32, r + row * 32, valid[row] != 0) && real;
-    if (real) prevalid[i] = live ? 1 : 0;
+TM_DEV point<E> pt_shfl_down(const point<E>& p, int s) {
+    point<E> r;
+    for (int l = 0; l < field<E>::N; ++l) {
+        r.x.v[l] = __shfl_down_sync(TM_FULL_MASK, p.x.v[l], s);
+        r.y.v[l] = __shfl_down_sync(TM_FULL_MASK, p.y.v[l], s);
+        r.z.v[l] = __shfl_down_sync(TM_FULL_MASK, p.z.v[l], s);
+        r.t.v[l] = __shfl_down_sync(TM_FULL_MASK, p.t.v[l], s);
+    }
+    return r;
+}
+
+// Launch 0: a thread per point; threads past 2N run point 0 as dummies
+// and store nothing (every lane calls a collective fe_mul).
+template <class E>
+__global__ void __launch_bounds__(TM_RLC_POINT_THREADS)
+rlc_points_kernel(const uint8_t* __restrict__ pub, const uint8_t* __restrict__ r,
+                  const uint8_t* __restrict__ zk, const uint8_t* __restrict__ z,
+                  typename field<E>::limb* __restrict__ pts, uint8_t* __restrict__ okf,
+                  uint8_t* __restrict__ planes, int n) {
+    const int t = blockIdx.x * TM_RLC_POINT_THREADS + threadIdx.x;
+    const bool real = t < 2 * n;
+    point<E> neg;
+    const bool ok = rlc_point(neg, planes, pub, r, zk, z, real ? t : 0, n, real);
+    if (real) {
+        lane_store<E>(pts, t, neg);
+        okf[t] = ok ? 1 : 0;
+    }
+}
+
+// Launch 1: a warp per task; see the header note.
+template <class E>
+__global__ void __launch_bounds__(32 * TM_RLC_TASK_WARPS)
+rlc_buckets_kernel(const uint8_t* __restrict__ valid, const uint8_t* __restrict__ okf,
+                   const uint8_t* __restrict__ planes,
+                   const typename field<E>::limb* __restrict__ pts,
+                   typename field<E>::limb* __restrict__ vals, int* __restrict__ cnt, int n) {
+    __shared__ int ring[TM_RLC_TASK_WARPS][TM_RLC_RING];
+    const int lane = threadIdx.x & 31;
+    const int g = blockIdx.x * TM_RLC_TASK_WARPS + (threadIdx.x >> 5);
+    if (g >= rlc_tasks(n)) return;  // a whole warp
+    int* q = ring[threadIdx.x >> 5];
+    const rlc_task task = rlc_task_of(g, n);
     point<E> acc = pt_identity<E>();
-    for (int w = 63; w >= 0; --w) {
-        terms[tid] = rlc_row_term(tbl, zk + row * 32, z + row * 16, live, w);
-        __syncthreads();
-        // tree: level s adds terms[t + s] into terms[t] for t < s; reads
-        // and writes of one level never touch the same slot twice, and a
-        // lane that only keeps its warp company reads its own slot (>= s)
-        for (int s = TM_RLC_THREADS / 2; s > 0; s >>= 1) {
-            const bool adds = tid < s;
-            if ((tid & ~31) < s) {
-                const point<E> sum = pt_add(terms[tid], terms[adds ? tid + s : tid]);
-                if (adds) terms[tid] = sum;
+    bool full = false;  // a batch of 32 was taken: every lane holds a sum
+    int head = 0, tail = 0;  // points taken from the queue, and queued
+    for (int plane = 0; plane < (task.w < TM_RLC_Z_WINDOWS ? 2 : 1); ++plane) {
+        const uint8_t* digits = planes + (size_t)(plane ? TM_RLC_WINDOWS + task.w : task.w) * n;
+        const int first = plane ? n : 0;  // -R_i is point n + i
+        for (int i0 = task.lo; i0 < task.hi; i0 += 32 * TM_RLC_SCAN_STEPS) {
+            // every load of the steps is made before any is used (& does
+            // not short-circuit), so their latencies overlap
+            bool hits[TM_RLC_SCAN_STEPS];
+#pragma unroll
+            for (int k = 0; k < TM_RLC_SCAN_STEPS; ++k) {
+                const int i = i0 + 32 * k + lane;
+                const int c = i < task.hi ? i : task.lo;
+                hits[k] = (i < task.hi) & (digits[c] == task.j) & (valid[c] != 0) &
+                          (okf[c] != 0) & (okf[n + c] != 0);
             }
-            __syncthreads();
-        }
-        if (tid < 32) {
-            // all of warp 0 runs the step on the same sum, thread 0 keeps
-            // it; read before the step: thread 0 writes terms[0] next
-            const point<E> sum = terms[0];
-            acc = rlc_horner(acc, sum);
+#pragma unroll
+            for (int k = 0; k < TM_RLC_SCAN_STEPS; ++k) {
+                const unsigned ballot = __ballot_sync(TM_FULL_MASK, hits[k]);
+                if (hits[k])
+                    q[(tail + __popc(ballot & ((1u << lane) - 1u))) & (TM_RLC_RING - 1)] =
+                        first + i0 + 32 * k + lane;
+                tail += __popc(ballot);
+            }
+            __syncwarp();
+            while (tail - head >= 32) {  // the same in every lane
+                const point<E> x = lane_load<E>(pts, q[(head + lane) & (TM_RLC_RING - 1)]);
+                head += 32;
+                acc = full ? pt_add(acc, x) : x;
+                full = true;
+            }
         }
     }
-    if (tid == 0) lane_store<E>(lanes, blockIdx.x, acc);
+    const int count = tail;
+    if (count == 0) {
+        if (lane == 0) {
+            lane_store<E>(vals, g, pt_identity<E>());
+            cnt[g] = 0;
+        }
+        return;
+    }
+    if (tail > head) {  // the last batch is short: lanes past it add the identity
+        const int rest = tail - head;
+        const point<E> x = lane < rest ? lane_load<E>(pts, q[(head + lane) & (TM_RLC_RING - 1)])
+                                       : pt_identity<E>();
+        acc = full ? pt_add(acc, x) : x;
+    }
+    // lanes 0 .. m - 1 hold sums; lane 0 ends with B
+    const int m = count < 32 ? count : 32;
+    for (int s = 1; s < m; s <<= 1) {
+        const point<E> other = pt_shfl_down(acc, s);
+        const point<E> sum = pt_add(acc, other);
+        if ((lane & (2 * s - 1)) == 0 && lane + s < m) acc = sum;
+    }
+    const point<E> v = rlc_times_digit(acc, task.j);
+    if (lane == 0) {
+        lane_store<E>(vals, g, v);
+        cnt[g] = count;
+    }
+}
+
+// Launch 2: a warp per window w; lane 0 writes lane w.  The warps also
+// write prevalid.
+template <class E>
+__global__ void __launch_bounds__(32)
+rlc_windows_kernel(const uint8_t* __restrict__ valid, const uint8_t* __restrict__ okf,
+                   const typename field<E>::limb* __restrict__ vals, const int* __restrict__ cnt,
+                   typename field<E>::limb* __restrict__ lanes, uint8_t* __restrict__ prevalid,
+                   int n) {
+    const int w = blockIdx.x, lane = threadIdx.x;
+    for (int i = w * 32 + lane; i < n; i += TM_RLC_WINDOWS * 32)
+        prevalid[i] = rlc_prevalid(valid, okf, i, n) ? 1 : 0;
+    const int per = TM_RLC_BUCKETS * rlc_splits(n), g0 = w * per;
+    point<E> acc = pt_identity<E>();
+    bool have = false;
+    for (int k0 = 0; k0 < per; k0 += 32) {
+        const int k = k0 + lane;
+        const bool real = k < per && cnt[g0 + k] > 0;
+        const point<E> x = real ? lane_load<E>(vals, g0 + k) : pt_identity<E>();
+        if (k0 == 0) {
+            acc = x;
+        } else {
+            const point<E> sum = pt_add(acc, x);
+            if (real) acc = have ? sum : x;
+        }
+        have = have || real;
+    }
+    if (!__any_sync(TM_FULL_MASK, have)) {  // an empty window
+        if (lane == 0) lane_store<E>(lanes, w, pt_identity<E>());
+        return;
+    }
+    for (int s = 1; s < 32; s <<= 1) {
+        const point<E> other = pt_shfl_down(acc, s);
+        const bool other_has = __shfl_down_sync(TM_FULL_MASK, (int)have, s) != 0;
+        const point<E> sum = pt_add(acc, other);
+        if ((lane & (2 * s - 1)) == 0 && other_has) {
+            acc = have ? sum : other;
+            have = true;
+        }
+    }
+    for (int d = 0; d < 4 * w; ++d) acc = pt_dbl(acc, d == 4 * w - 1);
+    if (lane == 0) lane_store<E>(lanes, w, acc);
 }
 
 // One block folds `in` (n lanes) into `work` until at most
@@ -219,19 +388,29 @@ rlc_fold_kernel(const typename field<E>::limb* __restrict__ in,
     }
 }
 
+// Launch `stage` (0, 1, 2) of ed25519_rlc; the scratch comes from the
+// caller: pts [2N] points, okf [2N] bytes, planes [96 N] bytes, vals
+// [rlc_tasks(N)] points, cnt [rlc_tasks(N)] ints.
 template <class E>
-static int launch_rlc(const void* pub, const void* r, const void* zk, const void* z,
-                      const void* valid, void* lanes, void* prevalid, int n, void* stream) {
-    if (n > 0) {
-        const int smem = TM_RLC_THREADS * (int)sizeof(point<E>);
-        const cudaError_t err = cudaFuncSetAttribute(
-            ed25519_rlc_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return (int)err;
-        ed25519_rlc_kernel<E><<<(n + TM_RLC_THREADS - 1) / TM_RLC_THREADS, TM_RLC_THREADS, smem,
-                                (cudaStream_t)stream>>>(
+static int launch_rlc(int stage, const void* pub, const void* r, const void* zk, const void* z,
+                      const void* valid, void* lanes, void* prevalid, void* pts, void* okf,
+                      void* planes, void* vals, void* cnt, int n, void* stream) {
+    typedef typename field<E>::limb limb;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (n > 0 && stage == 0)
+        rlc_points_kernel<E><<<(2 * n + TM_RLC_POINT_THREADS - 1) / TM_RLC_POINT_THREADS,
+                               TM_RLC_POINT_THREADS, 0, st>>>(
             (const uint8_t*)pub, (const uint8_t*)r, (const uint8_t*)zk, (const uint8_t*)z,
-            (const uint8_t*)valid, (typename field<E>::limb*)lanes, (uint8_t*)prevalid, n);
-    }
+            (limb*)pts, (uint8_t*)okf, (uint8_t*)planes, n);
+    else if (n > 0 && stage == 1)
+        rlc_buckets_kernel<E><<<(rlc_tasks(n) + TM_RLC_TASK_WARPS - 1) / TM_RLC_TASK_WARPS,
+                                32 * TM_RLC_TASK_WARPS, 0, st>>>(
+            (const uint8_t*)valid, (const uint8_t*)okf, (const uint8_t*)planes,
+            (const limb*)pts, (limb*)vals, (int*)cnt, n);
+    else if (n > 0 && stage == 2)
+        rlc_windows_kernel<E><<<TM_RLC_WINDOWS, 32, 0, st>>>(
+            (const uint8_t*)valid, (const uint8_t*)okf, (const limb*)vals, (const int*)cnt,
+            (limb*)lanes, (uint8_t*)prevalid, n);
     return (int)cudaGetLastError();
 }
 
@@ -243,60 +422,99 @@ static int launch_rlc_fold(const void* lanes, void* work, int n, void* stream) {
     return (int)cudaGetLastError();
 }
 
-#define TM_RLC_ENTRY(name, E)                                                                \
-    extern "C" int tm_##name(const void* pub, const void* r, const void* zk, const void* z,  \
-                             const void* valid, void* lanes, void* prevalid, int n,           \
-                             void* stream) {                                                  \
-        return launch_rlc<E>(pub, r, zk, z, valid, lanes, prevalid, n, stream);               \
+#define TM_RLC_ENTRY(name, E)                                                               \
+    extern "C" int tm_##name(int stage, const void* pub, const void* r, const void* zk,     \
+                             const void* z, const void* valid, void* lanes, void* prevalid, \
+                             void* pts, void* okf, void* planes, void* vals, void* cnt,     \
+                             int n, void* stream) {                                         \
+        return launch_rlc<E>(stage, pub, r, zk, z, valid, lanes, prevalid, pts, okf,        \
+                             planes, vals, cnt, n, stream);                                 \
     }
 #define TM_FOLD_ENTRY(name, E)                                                      \
     extern "C" int tm_##name(const void* lanes, void* work, int n, void* stream) {  \
         return launch_rlc_fold<E>(lanes, work, n, stream);                          \
     }
 
-#else  // host build: the same blocks, one after another, on the CPU
+#else  // host build: the same tasks, lanes and trees, one after another, on the CPU
 
 #include <stdlib.h>
 
-// Returns 0, or -1 if the tables could not be allocated.
+// The lanes' sums of one warp: lane l (< 32) holds acc[l] where has[l];
+// a tree over them, as the card's shuffles pair them.  Returns whether
+// any lane had one; acc[0] is then the sum.
+template <class E>
+static bool host_lane_tree(point<E>* acc, bool* has) {
+    for (int s = 1; s < 32; s <<= 1)
+        for (int l = 0; l < 32; l += 2 * s)
+            if (has[l + s]) {
+                acc[l] = has[l] ? pt_add(acc[l], acc[l + s]) : acc[l + s];
+                has[l] = true;
+            }
+    return has[0];
+}
+
+// Returns 0, or -1 if the scratch could not be allocated.
 template <class E>
 static int host_rlc(const uint8_t* pub, const uint8_t* r, const uint8_t* zk, const uint8_t* z,
                     const uint8_t* valid, typename field<E>::limb* lanes, uint8_t* prevalid,
                     int n) {
-    rlc_tables<E>* tbl = (rlc_tables<E>*)malloc(sizeof(rlc_tables<E>) * TM_RLC_THREADS);
-    point<E>* terms = (point<E>*)malloc(sizeof(point<E>) * TM_RLC_THREADS);
-    if (tbl == NULL || terms == NULL) {
-        free(tbl);
-        free(terms);
-        return -1;
-    }
-    bool live[TM_RLC_THREADS];
-    const int blocks = (n + TM_RLC_THREADS - 1) / TM_RLC_THREADS;
-    for (int b = 0; b < blocks; ++b) {
-        for (int t = 0; t < TM_RLC_THREADS; ++t) {
-            const int i = b * TM_RLC_THREADS + t;
-            if (i >= n) continue;
-            live[t] = rlc_row_prepare(tbl[t], pub + (size_t)i * 32, r + (size_t)i * 32,
-                                      valid[i] != 0);
-            prevalid[i] = live[t] ? 1 : 0;
-        }
-        point<E> acc = pt_identity<E>();
-        for (int w = 63; w >= 0; --w) {
-            for (int t = 0; t < TM_RLC_THREADS; ++t) {
-                const int i = b * TM_RLC_THREADS + t;
-                terms[t] = i < n ? rlc_row_term(tbl[t], zk + (size_t)i * 32, z + (size_t)i * 16,
-                                                live[t], w)
-                                 : pt_identity<E>();
+    if (n <= 0) return 0;
+    const int tasks = rlc_tasks(n);
+    point<E>* pts = (point<E>*)malloc(sizeof(point<E>) * 2 * n);
+    point<E>* vals = (point<E>*)malloc(sizeof(point<E>) * tasks);
+    point<E>* acc = (point<E>*)malloc(sizeof(point<E>) * 32);
+    int* cnt = (int*)malloc(sizeof(int) * tasks);
+    uint8_t* okf = (uint8_t*)malloc(2 * (size_t)n);
+    uint8_t* planes = (uint8_t*)malloc((size_t)TM_RLC_PLANES * n);
+    int status = -1;
+    if (pts && vals && acc && cnt && okf && planes) {
+        status = 0;
+        for (int p = 0; p < 2 * n; ++p)  // launch 0
+            okf[p] = rlc_point(pts[p], planes, pub, r, zk, z, p, n, true) ? 1 : 0;
+        for (int g = 0; g < tasks; ++g) {  // launch 1: entry e goes to lane e % 32
+            const rlc_task task = rlc_task_of(g, n);
+            int count = 0;
+            for (int plane = 0; plane < (task.w < TM_RLC_Z_WINDOWS ? 2 : 1); ++plane) {
+                const uint8_t* digits =
+                    planes + (size_t)(plane ? TM_RLC_WINDOWS + task.w : task.w) * n;
+                for (int i = task.lo; i < task.hi; ++i) {
+                    if (digits[i] != task.j || !rlc_prevalid(valid, okf, i, n)) continue;
+                    const point<E>& x = pts[(plane ? n : 0) + i];
+                    acc[count % 32] = count >= 32 ? pt_add(acc[count % 32], x) : x;
+                    ++count;
+                }
             }
-            for (int s = TM_RLC_THREADS / 2; s > 0; s >>= 1)
-                for (int t = 0; t < s; ++t) terms[t] = pt_add(terms[t], terms[t + s]);
-            acc = rlc_horner(acc, terms[0]);
+            bool has[32];
+            for (int l = 0; l < 32; ++l) has[l] = l < count;
+            vals[g] = host_lane_tree(acc, has) ? rlc_times_digit(acc[0], task.j)
+                                               : pt_identity<E>();
+            cnt[g] = count;
         }
-        lane_store<E>(lanes, b, acc);
+        const int per = TM_RLC_BUCKETS * rlc_splits(n);
+        for (int w = 0; w < TM_RLC_WINDOWS; ++w) {  // launch 2
+            bool has[32] = {false};
+            for (int k = 0; k < per; ++k) {
+                if (cnt[w * per + k] == 0) continue;
+                const int l = k % 32;
+                acc[l] = has[l] ? pt_add(acc[l], vals[w * per + k]) : vals[w * per + k];
+                has[l] = true;
+            }
+            point<E> sum = pt_identity<E>();
+            if (host_lane_tree(acc, has)) {
+                sum = acc[0];
+                for (int d = 0; d < 4 * w; ++d) sum = pt_dbl(sum, d == 4 * w - 1);
+            }
+            lane_store<E>(lanes, w, sum);
+        }
+        for (int i = 0; i < n; ++i) prevalid[i] = rlc_prevalid(valid, okf, i, n) ? 1 : 0;
     }
-    free(tbl);
-    free(terms);
-    return 0;
+    free(pts);
+    free(vals);
+    free(acc);
+    free(cnt);
+    free(okf);
+    free(planes);
+    return status;
 }
 
 // Folds `in` (n lanes) into `work` (room for n); returns the lanes left.

@@ -10,7 +10,7 @@
 #include "fe_f32.cuh"
 #include "fe_f32_mma.cuh"
 
-static_assert(TM_RLC_THREADS <= 32 * TM_MMA_WARPS,
+static_assert(TM_RLC_POINT_THREADS <= 32 * TM_MMA_WARPS && TM_RLC_TASK_WARPS <= TM_MMA_WARPS,
               "a block of ed25519_rlc_f32_mma overruns fe_mul's shared staging");
 
 TM_RLC_ENTRY(ed25519_rlc_f32, ff)

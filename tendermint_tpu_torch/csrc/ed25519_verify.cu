@@ -8,11 +8,11 @@
 // `base_mxu`, its `_scalarmul_base_mxu` (base_comb.cuh).  Five kernels:
 //
 //   ed25519_verify       the main path: one verdict per signature.
-//   ed25519_verify_comb  the same with [s]B by the tensor-core comb
+//   ed25519_verify_comb  the same with [s]B by the w=8 comb
 //                        (TM_CUDA_BASE_MXU=1).
 //   fe_ops               part check: a*b, a^2, a^((p-5)/8) for field elements.
 //   decompress           part check: permissive point decompression.
-//   comb_select          part check: the comb's tensor-core selection alone.
+//   comb_select          part check: the comb's selection (a gather) alone.
 //
 // What bounds it: integer multiplies.  Per signature the kernel does about
 // 2,100 field multiplies and 1,500 squarings (two decompressions, 63

@@ -11,7 +11,7 @@
 // the tensor-core one (TM_TPU_FE_MXU's configuration).  Three kernels:
 //
 //   ed25519_verify_f32       one verdict per signature.
-//   ed25519_verify_f32_comb  the same with [s]B by the tensor-core comb
+//   ed25519_verify_f32_comb  the same with [s]B by the w=8 comb
 //                            (TM_CUDA_BASE_MXU=1).
 //   fe_ops_f32               part check: a*b, a^2, a^((p-5)/8).
 //

@@ -11,8 +11,7 @@
 // ed25519_common.cuh's, instantiated on ffm.  Three kernels:
 //
 //   ed25519_verify_f32_mma       one verdict per signature.
-//   ed25519_verify_f32_mma_comb  the same with [s]B by the tensor-core
-//                                comb.
+//   ed25519_verify_f32_mma_comb  the same with [s]B by the w=8 comb.
 //   fe_mul_mma                   part check: the mma fe_mul alone, on raw
 //                                limbs [N][51] (any within its contract).
 //

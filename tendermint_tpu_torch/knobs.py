@@ -22,8 +22,8 @@ class Knob:
 
 KNOBS = (
     Knob("TM_CUDA_RLC", "0",
-         "1 verifies each batch through the RLC batch equation (kernels ed25519_rlc and "
-         "rlc_fold) with the exact per-row fallback; the counterpart of TM_TPU_RLC"),
+         "1 verifies each batch through the RLC batch equation (the layout's RLC "
+         "kernel) with the exact per-row fallback; the counterpart of TM_TPU_RLC"),
     Knob("TM_CUDA_FIELD_IMPL", "auto",
          "field layout of the verify kernel: int64 (5 x 51-bit limbs), packed (10 x "
          "25.5-bit), f32 (51 x 5-bit floats) or auto (int64 on the CPU; on the card the "

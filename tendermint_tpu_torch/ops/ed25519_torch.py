@@ -23,9 +23,10 @@ limbs of ``ops/fe25519.py``), "packed" (``ed25519_verify_packed``, 10 x
 ``fe_mxu`` (the JAX ``TM_TPU_FE_MXU``), as an integer mma on the tensor
 cores (kernel ``ed25519_verify_f32_mma``; plain version
 ``fe25519_f32.MXU``).  With the comb (``base_mxu``, int64 and f32 only)
-[s]B is a w=8 comb whose per-window selection is a one-hot x table
-product on the tensor cores (kernels ``ed25519_verify_comb``,
-``ed25519_verify_f32_comb`` and ``ed25519_verify_f32_mma_comb``).
+[s]B is a w=8 comb whose per-window selection is a gather from a
+shared byte table (kernels ``ed25519_verify_comb``,
+``ed25519_verify_f32_comb`` and ``ed25519_verify_f32_mma_comb``; the
+plain version keeps the JAX package's one-hot x table product).
 ``verify_batch`` picks the layout per call (``TM_CUDA_FIELD_IMPL``,
 default ``auto``), the multiply (``TM_CUDA_FE_MXU``, default ``auto``)
 and the comb (``TM_CUDA_BASE_MXU``) behind the golden-batch gate below.
@@ -36,8 +37,8 @@ there is no bucket ladder.
 The RLC path (``verify_batch_rlc``, counterpart of the JAX package's
 function of that name) checks the whole batch with one cofactored
 random-linear-combination equation, in the call's layout and multiply:
-the RLC kernel of that pair and the fold of that layout (or
-``verify_core_rlc``, their plain version) sum the rows' terms into
+the RLC kernel of that pair (or ``verify_core_rlc``, its plain version,
+with the JAX package's fold to 128 lanes) sums the rows' terms into
 lanes, and the host finishes the equation in big-int (``finalize_rlc``).
 A batch that fails it is decided row by row by ``verify_rows`` on the
 rows already prepared, so the verdicts are always the per-row ones.
@@ -169,11 +170,10 @@ class _Core:
         return acc
 
     def scalarmul_base_mxu(self, s_rows: torch.Tensor) -> fe.Pt:
-        """[s]B by the w=8 comb, the plain version of the kernels' tensor-
-        core selection: the 32 s bytes are radix-256 digits, each window's
-        entry is the one-hot x table product of ``comb_select_plain`` on
-        the kernels' own byte table, unpacked to this layout's limbs; 31
-        additions."""
+        """[s]B by the w=8 comb, the plain version of the kernels' comb:
+        the 32 s bytes are radix-256 digits, each window's entry is the
+        one-hot x table product of ``comb_select_plain`` on the kernels'
+        own byte table, unpacked to this layout's limbs; 31 additions."""
         sel = comb_select_plain(s_rows, kernels.comb_table(s_rows.device))
         limbs = self.fe.fe_from_bytes(sel.reshape(s_rows.shape[0], 32, 4, 32))
         acc = fe.Pt(*limbs[:, 0].unbind(1))
@@ -286,15 +286,16 @@ def _pt_reduce_to_lanes(p: fe.Pt, target: int, impl: str = "int64") -> fe.Pt:
 
 def verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, reduce_lanes=REDUCE_LANES,
                     impl="int64", fe_mxu=False):
-    """Plain version of the RLC kernel of (`impl`, `fe_mxu`) and its fold,
-    shaped as the JAX package's ``_Core.verify_core_rlc`` in that layout:
+    """Plain version of the RLC kernel of (`impl`, `fe_mxu`), shaped as the
+    JAX package's ``_Core.verify_core_rlc`` in that layout:
 
         [8]( [c]B - sum_i [z_i k_i](A_i) - sum_i [z_i](R_i) ) == O
 
     Inputs: pub/r/zk rows uint8 [N, 32], z rows uint8 [N, 16] (the 128-bit
     z_i), valid bool [N].  Returns (lanes, prevalid): a [P]-point in the
     layout's limbs whose lanes sum to sum_i [z_i k_i](-A_i) + [z_i](-R_i),
-    P = reduced_width(N, 128), the JAX program's lanes point for point; and
+    P = reduced_width(N, 128), the JAX program's lanes point for point (the
+    kernel's 64 lanes, one per window, have the same sum); and
     prevalid = valid & A, R on the curve.  A row that is not prevalid
     selects digit 0, the identity, in every window.  The host finishes
     the equation (``finalize_rlc``)."""
@@ -371,13 +372,11 @@ def verify_rows(pub_rows, r_rows, s_rows, k_rows, valid, impl="int64",
 def verify_rows_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, impl="int64", fe_mxu=False):
     """(lanes, prevalid) of the RLC equation for packed rows in the field
     layout `impl` (f32's multiply on the tensor cores where `fe_mxu`): the
-    RLC kernel of that pair, then the layout's fold where it wrote more
-    than 128 lanes, for CUDA tensors; ``verify_core_rlc`` for CPU tensors.
-    Lanes come back as a point in the plain version's limbs of `impl`."""
+    RLC kernel of that pair (64 lanes, one per window, so no fold) for
+    CUDA tensors; ``verify_core_rlc`` for CPU tensors.  Lanes come back as
+    a point in the plain version's limbs of `impl`."""
     if pub_rows.is_cuda:
         lanes, prevalid = kernels.rlc(impl, fe_mxu)(pub_rows, r_rows, zk_rows, z_rows, valid)
-        if lanes.shape[0] > kernels.RLC_MAX_LANES:
-            lanes = kernels.rlc_fold(lanes)
         return lanes_to_pt(lanes, impl), prevalid
     return verify_core_rlc(pub_rows, r_rows, zk_rows, z_rows, valid, impl=impl, fe_mxu=fe_mxu)
 
@@ -391,12 +390,12 @@ def decompress_rows(enc: torch.Tensor):
 
 
 def comb_select_plain(s_rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Plain version of the ``comb_select`` kernel: per window w, the
-    one-hot [N, 256] x byte table [256, 128] product (float64, exact),
-    uint8 [N, 32, 128]."""
-    cols = table.to(torch.float64)
+    """Plain version of the ``comb_select`` kernel, as the JAX package
+    selects: per window w, the one-hot [N, 256] x byte table [256, 128]
+    product (float64, exact), uint8 [N, 32, 128]."""
+    entries = table.to(torch.float64)
     out = [torch.matmul(torch.nn.functional.one_hot(s_rows[:, w].to(torch.int64), 256)
-                        .to(torch.float64), cols[w].T) for w in range(32)]
+                        .to(torch.float64), entries[w]) for w in range(32)]
     return torch.stack(out, dim=1).to(torch.uint8)
 
 
@@ -660,9 +659,9 @@ def verify_batch_rlc(pubs, msgs, sigs, impl=None, device=None) -> np.ndarray:
 
     In the field layout `impl` (``default_impl()`` when None) with the
     multiply ``_resolve_optin`` grants, both gated before the launch (as
-    the JAX package gates fe_mxu at ``verify_batch_rlc``): one launch of
-    that pair's RLC kernel (and one of the layout's fold above 8,192 rows)
-    on ``cuda``, the plain version for ``device="cpu"``.  A batch that
+    the JAX package gates fe_mxu at ``verify_batch_rlc``): that pair's RLC
+    kernel (its three launches) on ``cuda``, the plain version for
+    ``device="cpu"``.  A batch that
     passes returns prevalid.  A batch that fails (it holds a bad row, or,
     with probability about 2^-125, z was unlucky) is decided by the exact
     per-row ``verify_rows`` on the rows already prepared, in the same

@@ -26,12 +26,13 @@ the RLC kernels of every layout and their folds, ``ed25519_rlc``,
 ``ed25519_rlc_packed``, ``rlc_fold``, ``rlc_fold_packed``
 (``csrc/ed25519_rlc.cu``) and ``ed25519_rlc_f32``, ``ed25519_rlc_f32_mma``,
 ``rlc_fold_f32`` (``csrc/ed25519_rlc_f32.cu``), all instances of
-``csrc/ed25519_rlc.cuh``.  Every source includes the curve pipeline of
-``csrc/ed25519_common.cuh``; the comb's tensor-core selection is
-``csrc/base_comb.cuh``.  The device probes ``pl_i32mul``, ``op_chain``,
-``pl_femul8`` and ``fe_mul_chain`` (``csrc/probes.cu``) are chains of one
-operation that ``benchmarks/roofline_probe.py`` times; no verify path
-launches them.
+``csrc/ed25519_rlc.cuh``: an RLC kernel is three launches (points,
+buckets, windows), each counted, on scratch its wrapper allocates.
+Every source includes the curve pipeline of ``csrc/ed25519_common.cuh``;
+the comb's selection, a gather, is ``csrc/base_comb.cuh``.  The device
+probes ``pl_i32mul``, ``op_chain``, ``pl_femul8`` and ``fe_mul_chain``
+(``csrc/probes.cu``) are chains of one operation that
+``benchmarks/roofline_probe.py`` times; no verify path launches them.
 """
 
 from __future__ import annotations
@@ -87,19 +88,28 @@ OP_CHAIN_KINDS = {"floor": (torch.int32, 255, 0), "i32mul": (torch.int32, 255, 0
                   "i64add": (torch.int64, (1 << 17) - 1, 2), "f32mul": (torch.float32, 0, 3)}
 FEMUL8_LIMBS = 32  # pl_femul8's limbs of 8 bits
 
-RLC_THREADS = 64  # rows per block of ed25519_rlc; each block writes one lane
+# The RLC kernels' bucket method (csrc/ed25519_rlc.cuh): radix-16 windows
+# of z*k (the first 32 also of z), digits 1..15 as buckets, and tasks of
+# (window, digit, split of at most RLC_SPLIT_ROWS rows); one lane per window.
+RLC_WINDOWS = 64
+RLC_Z_WINDOWS = 32
+RLC_BUCKETS = 15
+RLC_SPLIT_ROWS = 16384
+RLC_PLANES = RLC_WINDOWS + RLC_Z_WINDOWS  # digit planes of N bytes in scratch
+RLC_STAGES = 3  # launches per RLC call: points, buckets, windows
 RLC_MAX_LANES = 128  # rlc_fold folds the lanes to this many or fewer
-COMB_SHAPE = (32, 128, 256)  # the comb table: window, byte of X|Y|Z|T, digit
+COMB_SHAPE = (32, 256, 128)  # the comb table: window, digit, byte of X|Y|Z|T
 
 # Field multiplies and squarings one row of each kernel performs (fixed:
 # no loop depends on the data), as a host build of csrc/ counts them
 # (TM_COUNT_FIELD_OPS; tests/test_torch_kernel_host.py holds these tables
-# to that count).  The RLC kernels add a per-block term for the tree and
-# the block's Horner chain; a "row" of a fold is a lane it folds away.  The
-# packed and f32 doublings square x + y with a multiply, as their JAX
-# formulas do.  The comb takes 31 fixed-base additions instead of 63.
-# The counts are the work a row needs: the dummy additions that keep a
-# warp's lanes together under the collective fe_mul are not in them.
+# to that count).  An RLC kernel's row term is its two decompressions; its
+# additions depend on the digits (``rlc_field_ops``).  A "row" of a fold
+# is a lane it folds away.  The packed and f32 doublings square x + y with
+# a multiply, as their JAX formulas do.  The comb takes 31 fixed-base
+# additions instead of 63.  The counts are the work the data needs: the
+# dummy additions that keep a warp's lanes together under the collective
+# fe_mul, or that add the identity, are not in them.
 _PT_ADD = (9, 0)
 _PT_DBL_T = (4, 4)
 _PT_DBL = (3, 4)
@@ -120,8 +130,7 @@ def _verify_ops(base_adds: int, dbl, dbl_t):
 
 
 _FE_OPS = _ops((1, (1, 0)), (1, (0, 1)), (1, _POW_P58))
-_RLC_ROW = _ops((2, _DECOMPRESS), (2 * 14, _PT_ADD),  # tables of -A, -R
-               (32, _PT_ADD))                        # + [z_w](-R), w < 32
+_RLC_ROW = _ops((2, _DECOMPRESS))  # A and R, one thread each
 FIELD_OPS_PER_ROW = {
     "ed25519_verify": _verify_ops(63, _PT_DBL, _PT_DBL_T),
     "ed25519_verify_comb": _verify_ops(31, _PT_DBL, _PT_DBL_T),
@@ -138,12 +147,6 @@ FIELD_OPS_PER_ROW = {
     **dict.fromkeys(RLC_KERNELS.values(), _RLC_ROW),
     **dict.fromkeys(FOLD_KERNELS.values(), _ops((1, _PT_ADD))),
 }
-FIELD_OPS_PER_BLOCK = {  # 64 windows of: a tree over the block's rows, then Horner
-    name: _ops((64 * (RLC_THREADS - 1), _PT_ADD), (64 * 3, dbl), (64, dbl_t), (64, _PT_ADD))
-    for name, dbl, dbl_t in (("ed25519_rlc", _PT_DBL, _PT_DBL_T),
-                             ("ed25519_rlc_packed", _PT_DBL_MUL, _PT_DBL_T_MUL),
-                             ("ed25519_rlc_f32", _PT_DBL_MUL, _PT_DBL_T_MUL),
-                             ("ed25519_rlc_f32_mma", _PT_DBL_MUL, _PT_DBL_T_MUL))}
 
 # Per layout: the limb products of one multiply and of one squaring, as
 # instructions of the pipe that bounds them.  5 x 51: a 51 x 51-bit
@@ -183,28 +186,86 @@ def reduced_width(n: int, target: int) -> int:
 
 
 def rlc_lanes(n: int) -> int:
-    """Lanes ``ed25519_rlc`` writes for n rows: one per block."""
-    return -(-n // RLC_THREADS)
+    """Lanes ``ed25519_rlc`` writes for n rows: one per window."""
+    return RLC_WINDOWS if n else 0
 
 
-def field_ops(kernel: str, n: int) -> tuple[int, int]:
-    """(multiplies, squarings) of one launch of `kernel` on n rows (for a
-    fold, n lanes)."""
+def rlc_splits(n: int) -> int:
+    """Row splits of each (window, digit) task of the RLC kernels."""
+    return max(1, -(-n // RLC_SPLIT_ROWS))
+
+
+def rlc_tasks(n: int) -> int:
+    """Tasks (one warp each) of the RLC kernels' buckets launch."""
+    return RLC_WINDOWS * RLC_BUCKETS * rlc_splits(n)
+
+
+def _times_digit_ops(j: int, dbl, dbl_t) -> tuple[int, int]:
+    """[j]b by double-and-add, most significant bit first (T formed only
+    where an addition or the end follows)."""
+    terms = []
+    for bit in range(j.bit_length() - 2, -1, -1):
+        add = (j >> bit) & 1
+        terms.append((1, dbl_t if add or bit == 0 else dbl))
+        if add:
+            terms.append((1, _PT_ADD))
+    return _ops(*terms)
+
+
+def rlc_field_ops(kernel: str, zk_rows, z_rows, prevalid) -> tuple[int, int]:
+    """(multiplies, squarings) the RLC kernel `kernel` needs for these rows
+    (zk uint8 [N, 32], z uint8 [N, 16], prevalid bool [N]): two
+    decompressions a row; per non-empty (window, digit j, split) task of k
+    points, k - 1 additions and [j]; per non-empty window of t tasks,
+    t - 1 additions and 4w doublings."""
+    zk, z = np.asarray(zk_rows, dtype=np.uint8), np.asarray(z_rows, dtype=np.uint8)
+    ok = np.asarray(prevalid, dtype=bool)
+    n = len(ok)
+    if n == 0:
+        return 0, 0
+    dbl, dbl_t = ((_PT_DBL, _PT_DBL_T) if layout(kernel) == "51"
+                  else (_PT_DBL_MUL, _PT_DBL_T_MUL))
+    digits = [np.where(ok[:, None], np.stack([d & 15, d >> 4], axis=-1).reshape(n, -1), 0)
+              for d in (zk, z)]
+    terms = [(2 * n, _DECOMPRESS)]
+    splits = rlc_splits(n)
+    for w in range(RLC_WINDOWS):
+        tasks = 0
+        for r in range(splits):
+            rows = slice(r * n // splits, (r + 1) * n // splits)
+            counts = sum(np.bincount(d[rows, w], minlength=16) for d in digits
+                         if w < d.shape[1])
+            for j in range(1, 16):
+                if counts[j]:
+                    tasks += 1
+                    terms += [(int(counts[j]) - 1, _PT_ADD),
+                              (1, _times_digit_ops(j, dbl, dbl_t))]
+        if tasks:
+            terms += [(tasks - 1, _PT_ADD), (max(4 * w - 1, 0), dbl), (min(w, 1), dbl_t)]
+    return _ops(*terms)
+
+
+def field_ops(kernel: str, n: int, rlc_inputs=None) -> tuple[int, int]:
+    """(multiplies, squarings) of one call of `kernel` on n rows (for a
+    fold, n lanes); an RLC kernel's depend on its inputs, `rlc_inputs` =
+    (zk rows, z rows, prevalid)."""
+    if kernel in RLC_KERNELS.values():
+        if rlc_inputs is None:
+            raise ValueError(f"{kernel}'s work depends on its digits: pass rlc_inputs")
+        return rlc_field_ops(kernel, *rlc_inputs)
     rows = n - reduced_width(n, RLC_MAX_LANES) if kernel in FOLD_KERNELS.values() else n
     muls, sqs = FIELD_OPS_PER_ROW[kernel]
-    block_muls, block_sqs = FIELD_OPS_PER_BLOCK.get(kernel, (0, 0))
-    blocks = rlc_lanes(n) if kernel in FIELD_OPS_PER_BLOCK else 0
-    return rows * muls + blocks * block_muls, rows * sqs + blocks * block_sqs
+    return rows * muls, rows * sqs
 
 
-def operations(kernel: str, n: int) -> dict[str, int]:
-    """The limb products of one launch of `kernel` on n rows, as
+def operations(kernel: str, n: int, rlc_inputs=None) -> dict[str, int]:
+    """The limb products of one call of `kernel` on n rows, as
     instructions (operations, for "int8_mma") per pipe: the counts its
     bound is computed from, the larger time over the pipes.  An mma
     kernel's multiplies form their products on the FP32 pipe, beside its
     squarings, and sum them on the tensor cores, so its bound is never
     above the FFMA kernel's for the same rows."""
-    muls, sqs = field_ops(kernel, n)
+    muls, sqs = field_ops(kernel, n, rlc_inputs)
     per_mul, per_sq, pipe = LAYOUT_PRODUCTS[layout(kernel)]
     if kernel not in MMA_KERNELS:
         return {pipe: per_mul * muls + per_sq * sqs}
@@ -335,7 +396,7 @@ def library() -> ctypes.CDLL:
     lib.tm_decompress.argtypes = [p, p, p, i, p]
     lib.tm_comb_select.argtypes = [p, p, p, i, p]
     for name in RLC_KERNELS.values():
-        getattr(lib, f"tm_{name}").argtypes = [p, p, p, p, p, p, p, i, p]
+        getattr(lib, f"tm_{name}").argtypes = [i, *[p] * 12, i, p]
     for name in FOLD_KERNELS.values():
         getattr(lib, f"tm_{name}").argtypes = [p, p, i, p]
     lib.tm_op_chain.argtypes = [p, p, p, i, i, i, ctypes.c_longlong, p]
@@ -378,16 +439,16 @@ def base_table(device: torch.device) -> torch.Tensor:
 
 
 def comb_table_from_points(rows) -> np.ndarray:
-    """[32][256] big-int extended points -> uint8 [32, 128, 256], the
-    comb's layout: window, byte of the canonical X | Y | Z | T encodings,
-    digit.  Column-major per window, so the tensor cores' B operand (four
-    digits of one byte) is one aligned 32-bit load."""
-    out = np.zeros((256, 32, 128), dtype=np.uint8)
+    """[32][256] big-int extended points -> uint8 [32, 256, 128], the
+    comb's layout: window, digit, byte of the canonical X | Y | Z | T
+    encodings.  Entry-contiguous, the JAX table's order: a lane reads its
+    entry as eight 16-byte words."""
+    out = np.zeros((32, 256, 128), dtype=np.uint8)
     for i, row in enumerate(rows):
         for j, point in enumerate(row):
             enc = b"".join((c % _ref.P).to_bytes(32, "little") for c in point)
-            out[j, i] = np.frombuffer(enc, dtype=np.uint8)
-    return np.ascontiguousarray(out.transpose(1, 2, 0))
+            out[i, j] = np.frombuffer(enc, dtype=np.uint8)
+    return out
 
 
 @functools.cache
@@ -518,8 +579,8 @@ def fe_mul_mma(a, b):
 
 
 def comb_select(s, table):
-    """The comb's tensor-core selection alone: for packed s rows uint8
-    [N, 32] and the comb table uint8 [32, 128, 256], the entry each row
+    """The comb's selection alone: for packed s rows uint8 [N, 32] and the
+    comb table uint8 [32, 256, 128], the entry each row
     selects in each window, uint8 [N, 32, 128] (canonical X | Y | Z | T
     of [s_w * 256^w]B)."""
     n = s.shape[0]
@@ -553,7 +614,7 @@ def decompress(enc):
     return xy, ok
 
 
-def _rlc(kernel: str, impl: str, pub, r, zk, z, valid):
+def _rlc(kernel: str, impl: str, pub, r, zk, z, valid, stage_events=None):
     n = pub.shape[0]
     dev = pub.device
     for name, t in (("pub", pub), ("r", r), ("zk", zk)):
@@ -564,12 +625,23 @@ def _rlc(kernel: str, impl: str, pub, r, zk, z, valid):
     lanes = torch.empty((rlc_lanes(n), 4, limbs), dtype=dtype, device=dev)
     prevalid = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
+        scratch = (torch.empty((2 * n, 4, limbs), dtype=dtype, device=dev),  # -A, -R
+                   torch.empty(2 * n, dtype=torch.uint8, device=dev),  # on the curve
+                   torch.empty(RLC_PLANES * n, dtype=torch.uint8, device=dev),  # digits
+                   torch.empty((rlc_tasks(n), 4, limbs), dtype=dtype, device=dev),  # [j]B
+                   torch.empty(rlc_tasks(n), dtype=torch.int32, device=dev))  # points a task
+        entry = getattr(library(), f"tm_{kernel}")
         with torch.cuda.device(dev):
-            err = getattr(library(), f"tm_{kernel}")(
-                pub.data_ptr(), r.data_ptr(), zk.data_ptr(), z.data_ptr(), valid.data_ptr(),
-                lanes.data_ptr(), prevalid.data_ptr(), n, _stream(dev))
-        _raise_on(err, kernel)
-        LAUNCHES[kernel] += 1
+            for stage in range(RLC_STAGES):
+                if stage_events:
+                    stage_events[stage].record()
+                err = entry(stage, pub.data_ptr(), r.data_ptr(), zk.data_ptr(), z.data_ptr(),
+                            valid.data_ptr(), lanes.data_ptr(), prevalid.data_ptr(),
+                            *(t.data_ptr() for t in scratch), n, _stream(dev))
+                _raise_on(err, kernel)
+                LAUNCHES[kernel] += 1
+            if stage_events:
+                stage_events[RLC_STAGES].record()
     return lanes, prevalid
 
 
@@ -577,8 +649,10 @@ def rlc(impl: str = "int64", fe_mxu: bool = False):
     """The wrapper of the RLC kernel for field layout `impl` (with the
     tensor-core fe_mul where `fe_mxu`): from packed rows pub, r, zk (uint8
     [N, 32]), z (uint8 [N, 16]) and valid (bool [N]), the lanes, one per
-    block of 64 rows (X, Y, Z, T in the layout's limbs: ``LANE_LIMBS``),
-    and prevalid, bool [N]."""
+    radix-16 window (X, Y, Z, T in the layout's limbs: ``LANE_LIMBS``),
+    and prevalid, bool [N].  Three launches (``RLC_STAGES``), each counted;
+    with `stage_events`, RLC_STAGES + 1 CUDA events, they are recorded
+    around them."""
     try:
         return functools.partial(_rlc, RLC_KERNELS[(impl, fe_mxu)], impl)
     except KeyError:
@@ -586,8 +660,8 @@ def rlc(impl: str = "int64", fe_mxu: bool = False):
 
 
 def ed25519_rlc(pub, r, zk, z, valid):
-    """The RLC kernel in 5 x 51-bit limbs: lanes int64
-    [ceil(N / 64), 4, 5] and prevalid."""
+    """The RLC kernel in 5 x 51-bit limbs: lanes int64 [64, 4, 5] and
+    prevalid."""
     return _rlc("ed25519_rlc", "int64", pub, r, zk, z, valid)
 
 

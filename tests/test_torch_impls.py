@@ -80,9 +80,9 @@ def test_comb_table_matches_jax(impl):
     limbs): unpacked to `impl`'s limbs it equals that table limb for
     limb, and ``convert`` makes it from that table."""
     jax_table = jdev._core(impl)._fixed_base_tables256
-    byte_table = kernels.comb_table(CPU)  # [32, 128, 256]: window, byte, digit
-    limbs = dev._FIELDS[impl].fe_from_bytes(
-        byte_table.permute(0, 2, 1).reshape(32, 256, 4, 32)).reshape(32, 256, -1)
+    byte_table = kernels.comb_table(CPU)  # [32, 256, 128]: window, digit, byte
+    limbs = dev._FIELDS[impl].fe_from_bytes(byte_table.reshape(32, 256, 4, 32)).reshape(
+        32, 256, -1)
     assert limbs.shape == jax_table.shape
     assert np.array_equal(limbs.numpy().astype(np.float64), jax_table.astype(np.float64))
     assert np.array_equal(convert.comb_table_from_jax(jax_table, impl).numpy(),

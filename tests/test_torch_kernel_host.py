@@ -1,13 +1,14 @@
 """The CUDA sources' device functions, built for the CPU by the host C++
 compiler (every ``csrc/*.cu``, with the headers it includes, compiles as
-plain C++; the comb's tensor-core selection becomes a gather of the same
-byte table there, and the tensor-core fe_mul a plain loop over the same
-split products, K order and incidence weights), against the plain
-PyTorch versions and the pure ZIP-215 reference; and the field
-multiplies and squarings per row (and per block) that the kernels' bound
-is computed from (``ops/kernels.FIELD_OPS_PER_ROW``,
-``FIELD_OPS_PER_BLOCK``), counted in that same code.  Integer arithmetic:
-every comparison is exact; points are compared projectively."""
+plain C++; the comb's gather is the same code there, the tensor-core
+fe_mul a plain loop over the same split products, K order and incidence
+weights, and the RLC kernels' warps serial loops over the same tasks,
+lanes and trees), against the plain PyTorch versions and the pure ZIP-215
+reference; and the field multiplies and squarings that the kernels'
+bound is computed from (``ops/kernels.FIELD_OPS_PER_ROW``, and
+``rlc_field_ops`` from the digits for the RLC kernels), counted in that
+same code.  Integer arithmetic: every comparison is exact; points are
+compared projectively."""
 
 import ctypes
 import shutil
@@ -36,13 +37,13 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _host_build(tmp_path_factory, source: str) -> ctypes.CDLL:
+def _host_build(tmp_path_factory, source: str, *defines: str) -> ctypes.CDLL:
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
     out = tmp_path_factory.mktemp("host") / f"lib{source}.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-                    "-DTM_COUNT_FIELD_OPS", "-o", str(out),
+                    "-DTM_COUNT_FIELD_OPS", *(f"-D{d}" for d in defines), "-o", str(out),
                     str(kernels.CSRC / f"{source}.cu")], check=True, timeout=300)
     return ctypes.CDLL(str(out))
 
@@ -131,8 +132,8 @@ def _decompress(lib, enc):
 
 
 def _rlc(lib, rows, kernel="ed25519_rlc"):
-    """The host build's (lanes [ceil(N / 64), 4, limbs] in the kernel's
-    layout, prevalid)."""
+    """The host build's (lanes [64, 4, limbs] in the kernel's layout, one
+    per window, prevalid)."""
     impl = {v: k for k, v in kernels.RLC_KERNELS.items()}[kernel][0]
     pub, r, zk, z, valid = (np.ascontiguousarray(a) for a in rows)
     n = len(valid)
@@ -218,9 +219,9 @@ _FOLD_IMPL = {name: impl for impl, name in kernels.FOLD_KERNELS.items()}
 def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f32_lib,
                                                          f32_mma_lib, rlc_lib, kernel):
     """One row of each kernel, counted; no loop depends on the data, so
-    one row's count is every row's.  The RLC kernels are counted on 1 and
-    on 65 rows, which fixes both their per-row and their per-block term;
-    the folds on 157 lanes, the commit-10k call's."""
+    one row's count is every row's.  The RLC kernels, whose additions
+    follow the digits, are counted on 1 and on 65 rows against
+    ``rlc_field_ops`` of those rows; the folds on 157 lanes."""
     lib = {"51": host_lib, "packed": packed_lib, "f32": f32_lib}[kernels.layout(kernel)]
     if kernel in kernels.MMA_KERNELS:
         lib = f32_mma_lib
@@ -245,8 +246,11 @@ def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f
             [k.pub_key().bytes_() for k in keys], msgs, [k.sign(m) for k, m in zip(keys, msgs)])
         rows, _ = testkit.rlc_rows(prepared, seed=12)
         for n in (1, 65):
-            _rlc(rlc_lib, tuple(a[:n] for a in rows), kernel)
-            assert _counts(rlc_lib) == kernels.field_ops(kernel, n), n
+            _, prevalid = _rlc(rlc_lib, tuple(a[:n] for a in rows), kernel)
+            assert _counts(rlc_lib) == kernels.field_ops(kernel, n, (rows[2][:n], rows[3][:n],
+                                                                    prevalid)), n
+        with pytest.raises(ValueError, match="rlc_inputs"):
+            kernels.field_ops(kernel, 1)
         return
     else:
         impl = _FOLD_IMPL[kernel]
@@ -262,12 +266,16 @@ def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f
 def test_a_tensor_core_kernels_bound_is_never_above_its_ffma_kernels(mma, ffma):
     """An mma kernel's bound is priced on the FFMA kernel's FP32 count (the
     same products) plus the tensor cores' int8 operations, so where the
-    int8 work is the smaller the two bounds of one function are equal."""
+    int8 work is the smaller the two bounds of one function are equal (the
+    RLC kernels' on random digits, every row prevalid)."""
+    rng = np.random.default_rng(24)
     for n in (128, 10_000):
-        ops = kernels.operations(mma, n)
+        digits = (rng.integers(0, 256, size=(n, 32), dtype=np.uint8),
+                  rng.integers(0, 256, size=(n, 16), dtype=np.uint8), np.ones(n, dtype=bool))
+        ops = kernels.operations(mma, n, digits)
         assert set(ops) == {"ffma", "int8_mma"}
-        assert ops["ffma"] == kernels.operations(ffma, n)["ffma"]
-        assert ops["int8_mma"] == kernels.MMA_MUL_INT8_OPS * kernels.field_ops(mma, n)[0]
+        assert ops["ffma"] == kernels.operations(ffma, n, digits)["ffma"]
+        assert ops["int8_mma"] == kernels.MMA_MUL_INT8_OPS * kernels.field_ops(mma, n, digits)[0]
 
 
 @pytest.fixture(scope="module")
@@ -278,26 +286,49 @@ def rlc_batch():
     msgs = [b"rlc vote %d" % i for i in range(200)]
     pubs = [k.pub_key().bytes_() for k in keys]
     sigs = [k.sign(m) for k, m in zip(keys, msgs)]
-    mixed = testkit.mixed_batch(pubs, msgs, sigs, seed=15)[:3]
-    return ed25519_torch.prepare_batch(*mixed), ed25519_torch.prepare_batch(pubs, msgs, sigs)
+    *mixed, want = testkit.mixed_batch(pubs, msgs, sigs, seed=15)
+    return ed25519_torch.prepare_batch(*mixed), ed25519_torch.prepare_batch(pubs, msgs, sigs), want
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("n", [0, 1, 2, 5, 8, 9, 63, 64, 65, 200])
 def test_rlc_lane_sum_matches_the_plain_version(rlc_lib, rlc_batch, n):
-    """The host build's block partition (one lane per 64 rows) sums to the
-    plain version's lanes (the JAX program's partition), prevalid is the
-    same and so is the equation's decision; on the honest rows it holds,
-    on the mixed ones (from 2 rows up) it does not."""
+    """The host build's 64 window lanes sum to the plain version's lanes
+    (the JAX program's partition), prevalid is the same and so is the
+    equation's decision: it holds on the honest rows, and on the mixed
+    ones exactly when every prevalid row is one the reference accepts
+    (rows failing decompression or with valid False are left out; from 9
+    rows up a bad one is in, and the batch must fall back)."""
     for prepared, honest in zip(rlc_batch, (False, True)):
         rows, c_row = testkit.rlc_rows(tuple(a[:n] for a in prepared), seed=16 + n)
         lanes, prevalid = _rlc(rlc_lib, rows)
+        assert lanes.shape == (kernels.rlc_lanes(n), 4, 5)
         plain, plain_prevalid = ed25519_torch.verify_core_rlc(*map(torch.from_numpy, rows))
         assert np.array_equal(prevalid, plain_prevalid.numpy())
         assert ref.pt_equal(_sum(_lane_points(lanes)), _sum(_pt_points(plain)))
         decision = ed25519_torch.finalize_rlc(plain, c_row)
         as_pt = ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64)))
         assert ed25519_torch.finalize_rlc(as_pt, c_row) == decision
-        assert decision == (honest or n == 1)
+        want = rlc_batch[2] if not honest else [True] * n
+        assert decision == all(w for w, p in zip(want[:n], prevalid) if p)
+        assert decision == (honest or n < 6)
+        if not honest and n >= 63:  # both kinds of row left out are in the batch
+            assert not rows[4].all() and not prevalid[rows[4]].all()
+
+
+def test_rlc_row_splits_keep_the_sum_and_the_count(tmp_path_factory, rlc_batch, monkeypatch):
+    """Built with splits of 16 rows, 65 rows make five splits of 13: the
+    lanes still sum to the plain version's, with the same prevalid, and the
+    count follows ``rlc_field_ops`` with the same split."""
+    lib = _RlcLibs(_host_build(tmp_path_factory, "ed25519_rlc", "TM_RLC_SPLIT_ROWS=16"))
+    monkeypatch.setattr(kernels, "RLC_SPLIT_ROWS", 16)
+    assert kernels.rlc_splits(65) == 5
+    _counts(lib)
+    rows, c_row = testkit.rlc_rows(tuple(a[:65] for a in rlc_batch[0]), seed=25)
+    lanes, prevalid = _rlc(lib, rows)
+    assert _counts(lib) == kernels.field_ops("ed25519_rlc", 65, (rows[2], rows[3], prevalid))
+    plain, plain_prevalid = ed25519_torch.verify_core_rlc(*map(torch.from_numpy, rows))
+    assert np.array_equal(prevalid, plain_prevalid.numpy())
+    assert ref.pt_equal(_sum(_lane_points(lanes)), _sum(_pt_points(plain)))
 
 
 def test_rlc_fold_matches_the_plain_fold_lane_for_lane(rlc_lib):
@@ -364,9 +395,9 @@ def test_layout_fe_ops_match_their_plain_versions(libs, module, lib_name):
 
 
 def test_comb_selection_matches_the_plain_one_hot_product(host_lib):
-    """The host build's comb_select (the gather that stands in for the
-    tensor cores) on every digit in every window and on random rows: the
-    plain one-hot product, and the entries [j * 256^w]B themselves."""
+    """The host build's comb_select (the kernels' gather) on every digit in
+    every window and on random rows: the plain one-hot product, and the
+    entries [j * 256^w]B themselves."""
     table = kernels.comb_table(CPU)
     every = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 32, axis=1)
     rand = np.random.default_rng(20).integers(0, 256, size=(40, 32), dtype=np.uint8)
@@ -402,11 +433,10 @@ def test_fe_mul_mma_matches_the_plain_matrix_unit_product(f32_mma_lib):
 
 @pytest.mark.parametrize("impl,fe_mxu", sorted(kernels.RLC_KERNELS))
 def test_rlc_kernels_of_every_layout_sum_to_the_plain_lanes(rlc_lib, rlc_batch, impl, fe_mxu):
-    """Each layout's RLC kernel on 65 rows (two blocks, the second with
-    one row) of the mixed and the honest batch: its lanes sum to the int64
-    plain version's (held against the JAX program in test_torch_rlc.py),
-    with the same prevalid and the same decision, in the layout's own
-    finish."""
+    """Each layout's RLC kernel on 65 rows of the mixed and the honest
+    batch: its lanes sum to the int64 plain version's (held against the
+    JAX program in test_torch_rlc.py), with the same prevalid and the same
+    decision, in the layout's own finish."""
     kernel = kernels.RLC_KERNELS[(impl, fe_mxu)]
     for prepared, honest in zip(rlc_batch, (False, True)):
         rows, c_row = testkit.rlc_rows(tuple(a[:65] for a in prepared), seed=22)

@@ -112,8 +112,8 @@ def test_rlc_kernel_matches_plain_on_a_mixed_batch_across_blocks(cuda):
         rows = ed25519_torch.rows_to_device(rows, cuda)
         before = kernels.LAUNCHES["ed25519_rlc"]
         lanes, prevalid = kernels.ed25519_rlc(*rows)
-        assert kernels.LAUNCHES["ed25519_rlc"] == before + 1
-        assert lanes.shape == (4, 4, 5)
+        assert kernels.LAUNCHES["ed25519_rlc"] == before + kernels.RLC_STAGES
+        assert lanes.shape == (64, 4, 5)
         plain, plain_prevalid = ed25519_torch.verify_core_rlc(*rows)
         assert torch.equal(prevalid, plain_prevalid)
         kernel_pt = ed25519_torch.lanes_to_pt(lanes)
@@ -145,7 +145,7 @@ def test_verify_batch_rlc_on_the_card(cuda):
     rlc = kernels.RLC_KERNELS[(impl, fe_mxu)]
     before = dict(kernels.LAUNCHES), dict(ed25519_torch.RLC_STATS)
     assert ed25519_torch.verify_batch_rlc(pubs, msgs, sigs).tolist() == want
-    assert kernels.LAUNCHES[rlc] == before[0][rlc] + 1
+    assert kernels.LAUNCHES[rlc] == before[0][rlc] + kernels.RLC_STAGES
     assert kernels.LAUNCHES[fallback] == before[0][fallback] + 1
     assert ed25519_torch.RLC_STATS["fallback"] == before[1]["fallback"] + 1
     honest = [i for i, ok in enumerate(want) if ok]
@@ -198,7 +198,7 @@ def test_comb_select_kernel_covers_every_window_and_digit(cuda):
     s = torch.arange(256, dtype=torch.uint8, device=cuda)[:, None].expand(256, 32).contiguous()
     got = ed25519_torch.comb_select_rows(s)
     table = kernels.comb_table(cuda)
-    assert torch.equal(got, table.permute(2, 0, 1))
+    assert torch.equal(got, table.permute(1, 0, 2))
     assert torch.equal(got, ed25519_torch.comb_select_plain(s, table))
     rng = np.random.default_rng(13)
     s = torch.from_numpy(rng.integers(0, 256, size=(77, 32), dtype=np.uint8)).to(cuda)
@@ -254,9 +254,8 @@ def test_fe_mul_mma_kernel_matches_the_plain_matrix_unit_product(cuda):
 
 @pytest.mark.parametrize("impl,fe_mxu", sorted(kernels.RLC_KERNELS))
 def test_rlc_kernels_of_every_layout_match_plain(cuda, impl, fe_mxu):
-    """200 rows (four blocks, the last ragged) of a mixed and an honest
-    batch: the lanes sum to the plain version's, with the same prevalid
-    and decision; the layout's fold keeps the sum."""
+    """200 rows of a mixed and an honest batch: the 64 window lanes sum to
+    the plain version's, with the same prevalid and decision."""
     name = kernels.RLC_KERNELS[(impl, fe_mxu)]
     keys = testkit.validator_keys(seed=15, n=200)
     msgs = [b"layout rlc %d" % i for i in range(200)]
@@ -268,8 +267,8 @@ def test_rlc_kernels_of_every_layout_match_plain(cuda, impl, fe_mxu):
         rows = ed25519_torch.rows_to_device(rows, cuda)
         before = kernels.LAUNCHES[name]
         lanes, prevalid = kernels.rlc(impl, fe_mxu)(*rows)
-        assert kernels.LAUNCHES[name] == before + 1
-        assert lanes.shape == (4, 4, kernels.LANE_LIMBS[impl][1])
+        assert kernels.LAUNCHES[name] == before + kernels.RLC_STAGES
+        assert lanes.shape == (64, 4, kernels.LANE_LIMBS[impl][1])
         plain, plain_prevalid = ed25519_torch.verify_core_rlc(*(t.cpu() for t in rows))
         assert torch.equal(prevalid.cpu(), plain_prevalid)
         kernel_pt = ed25519_torch.lanes_to_pt(lanes.cpu(), impl)

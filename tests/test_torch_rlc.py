@@ -4,8 +4,10 @@ the CPU, against the JAX package's and the pure ZIP-215 reference.
 
 The one JAX program here is ``_compiled_rlc(16, "int64", 2048)``, the
 bucket ``tests/test_rlc.py`` compiles too, called from one test only:
-lane-for-lane parity of the plain version with it, and verdict parity of
-``verify_batch_rlc`` on batches that pass at that bucket.  Every other case (fallbacks, torsion
+lane-for-lane parity of the plain version with it, the lanes' sum of
+every RLC kernel's host build (``csrc/ed25519_rlc.cuh`` built by g++)
+against its lanes' sum, and verdict parity of ``verify_batch_rlc`` on
+batches that pass at that bucket.  Every other case (fallbacks, torsion
 and non-canonical vectors, other sizes) is held against the reference
 only, so no second JAX program is compiled.  Integer arithmetic and
 boolean verdicts: every comparison is exact, field values canonical mod
@@ -27,6 +29,8 @@ from tendermint_tpu_torch.crypto.keys import PrivKey  # noqa: E402
 from tendermint_tpu_torch.ops import ed25519_torch as dev  # noqa: E402
 from tendermint_tpu_torch.ops import fe25519 as fe  # noqa: E402
 from tendermint_tpu_torch.ops import kernels  # noqa: E402
+from tests import test_torch_kernel_host as host  # noqa: E402
+from tests.test_torch_kernel_host import rlc_lib  # noqa: E402, F401  (the RLC host builds)
 
 BUCKET = 16
 
@@ -75,14 +79,15 @@ def _excluded(batch):
     return pubs, msgs, sigs
 
 
-def test_plain_version_matches_jax_lanes_and_verdicts(batch, monkeypatch):
+def test_plain_version_matches_jax_lanes_and_verdicts(batch, rlc_lib, monkeypatch):
     """All comparisons with the JAX program sit in this one test, so that
     the program is compiled in one worker process only.
 
     Lanes: the plain version on the 16 rows the JAX program sees (the
     honest batch, and one with an off-curve R and a small-order key),
     lane for lane against ``_compiled_rlc(16, "int64", 2048)``, with the
-    same prevalid and the same decision.  Verdicts: ``verify_batch_rlc``
+    same prevalid and the same decision; each RLC kernel's host build (64
+    window lanes) with the same lanes' sum and prevalid.  Verdicts: ``verify_batch_rlc``
     against the JAX one on the batches that pass at bucket 16 (honest,
     and with s = L and a bad length), with RLC_STATS moving the same way."""
     monkeypatch.delenv("TM_TPU_RLC_LANES", raising=False)
@@ -101,6 +106,11 @@ def test_plain_version_matches_jax_lanes_and_verdicts(batch, monkeypatch):
         assert decision == jdev.finalize_rlc(jax_acc, c_row, "int64") == (kind == "honest")
         want_prevalid = [True] * 12 if kind == "honest" else [i != 2 for i in range(12)]
         assert prevalid[:12].tolist() == want_prevalid
+        jax_sum = _sum(_points(jax_acc))
+        for (impl, _), kernel in kernels.RLC_KERNELS.items():
+            host_lanes, host_prevalid = host._rlc(rlc_lib, padded, kernel)
+            assert host_prevalid.tolist() == prevalid.tolist(), (kind, kernel)
+            assert ref.pt_equal(_sum(host._lane_points(host_lanes, impl)), jax_sum), (kind, kernel)
     for kind, triples in (("honest", batch), ("excluded", _excluded(batch))):
         want = [jref.verify(*t) for t in zip(*triples)]
         port_before, jax_before = dict(dev.RLC_STATS), dict(jdev.RLC_STATS)

@@ -11,8 +11,9 @@ tests/test_torch_rlc.py holds against the JAX ``_compiled_rlc(16,
 formulas on the same partition, canonical coordinates compared), with the
 same prevalid and the same decision, and the whole path gives the
 reference's verdicts, fallbacks included.  No JAX program is compiled
-here; the f32 cases keep to 16 rows or fewer.  Every comparison is
-exact."""
+here; the f32 cases keep to 16 rows or fewer.  The RLC kernels' host
+builds (``csrc/ed25519_rlc.cuh`` by g++) are held on the same batches.
+Every comparison is exact."""
 
 import numpy as np
 import pytest
@@ -23,6 +24,8 @@ from tendermint_tpu_torch.crypto import ed25519 as ref
 from tendermint_tpu_torch.crypto.keys import PrivKey
 from tendermint_tpu_torch.ops import ed25519_torch as dev
 from tendermint_tpu_torch.ops import kernels
+from tests import test_torch_kernel_host as host
+from tests.test_torch_kernel_host import rlc_lib  # noqa: F401  (the RLC host builds)
 
 LAYOUTS = [("packed", False), ("f32", False), ("f32", True)]
 
@@ -109,6 +112,24 @@ def test_plain_rlc_lanes_match_the_int64_plain_rlc(int64_lanes, impl, fe_mxu):
     decisions = {label: v[4] for label, v in int64_lanes.items()}
     assert decisions == {"honest": True, "bad-signature": False, "off-curve": False,
                          "small-order": True, "zip215-edges": False}
+
+
+@pytest.mark.parametrize("kernel", sorted(kernels.RLC_KERNELS.values()))
+def test_rlc_kernel_host_builds_on_every_batch(int64_lanes, rlc_lib, kernel):
+    """Each RLC kernel's host build on the batches above (rows that fail
+    decompression, small-order and non-canonical points, batches that must
+    fall back): its 64 window lanes sum to the int64 plain lanes, with the
+    same prevalid and, in its own layout's finish, the same decision."""
+    impl = next(i for (i, _), name in kernels.RLC_KERNELS.items() if name == kernel)
+    for label, (rows, c_row, want_lanes, want_prevalid, want_decision) in int64_lanes.items():
+        lanes, prevalid = host._rlc(rlc_lib, tuple(t.numpy() for t in rows), kernel)
+        assert prevalid.tolist() == want_prevalid.tolist(), label
+        want = [tuple(int.from_bytes(bytes(c), "little") for c in lane)
+                for lane in want_lanes.numpy()]
+        assert ref.pt_equal(host._sum(host._lane_points(lanes, impl)), host._sum(want)), label
+        as_pt = dev.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64) if impl == "int64"
+                                                  else lanes), impl)
+        assert dev.finalize_rlc(as_pt, c_row, impl) == want_decision, label
 
 
 @pytest.mark.parametrize("impl,fe_mxu", LAYOUTS)
