@@ -4,8 +4,9 @@
 Builds the hand-written kernels of ``tendermint_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card (the
 tensor-core f32 multiply ``fe_mul_mma`` on operands at its contract's
-bounds, every verify kernel on the gauntlet and mixed batches, every RLC
-kernel and fold of every layout at 128 and 10,000 rows), then drives the
+bounds and at the edges of its signed-byte split, every verify kernel
+on the gauntlet and mixed batches, every RLC kernel and fold of every
+layout at 128 and 10,000 rows), then drives the
 port's commit-verification entry points at real validator-set sizes: a
 128-validator commit, a 10,000-validator commit (MaxVotesCount) and a
 blocksync window of 50 commits x 200 validators, first on the per-row
@@ -200,12 +201,13 @@ def main() -> int:
     def timed_host_ms(fn, runs: int) -> float:
         return timed_host(fn, runs)[1]
 
-    def bound_ms(kernel: str, n: int, nbytes: int, rlc_inputs=None) -> tuple[float, str]:
+    def bound_ms(kernel: str, n: int, nbytes: int, rlc_inputs=None,
+                 high_muls: int = 0) -> tuple[float, str]:
         if kernel == "comb_select":  # a gather: bytes only
             ops_ms = 0.0
-        else:  # the slowest pipe (an mma kernel: its FFMA or its int8 mma)
+        else:  # the slowest pipe (an mma kernel: its FFMA squarings or its int8 mma)
             ops_ms = max(count / pipe_per_s[pipe] * 1e3 for pipe, count in
-                         kernels.operations(kernel, n, rlc_inputs).items())
+                         kernels.operations(kernel, n, rlc_inputs, high_muls).items())
         bytes_ms = nbytes / kernels.HBM_BYTES_PER_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -283,22 +285,32 @@ def main() -> int:
     check(comb_err == 0 and torch.equal(selected, comb_table.permute(1, 0, 2)),
           "comb_select differs from its plain version or the table")
     # the tensor-core multiply on raw limbs at its contract's bounds (every
-    # sign pattern of +-153 x +-102, 17,641 against ones) and seeded within
-    # it, limb for limb against the plain matrix-unit product
+    # sign pattern of +-153 x +-102, 133 x -132, 17,641 against ones) in
+    # both argument orders, at the edges of its signed-byte split (limbs of
+    # 127, -128 and 128 on each side) and seeded within the contract, limb
+    # for limb against the plain matrix-unit product; the edge rows also
+    # against the big-int product
     bound_a, bound_b = testkit.fe_mul_bound_limbs(SEED, 4096)
-    la, lb = torch.from_numpy(bound_a).to(dev), torch.from_numpy(bound_b).to(dev)
+    byte_a, byte_b = testkit.fe_mul_byte_edge_limbs()
+    n_bound = len(bound_a) - 4096
+    x_np = np.concatenate([bound_a[:n_bound], bound_b[:n_bound], byte_a, byte_b,
+                           bound_a[n_bound:]])
+    y_np = np.concatenate([bound_b[:n_bound], bound_a[:n_bound], byte_b, byte_a,
+                           bound_b[n_bound:]])
+    n_edge = len(x_np) - 4096
+    la, lb = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
     got = fe25519_f32.fe_mul_mxu_rows(la, lb)
     mma_err = int((got - fe25519_f32.fe_mul_mxu(la, lb)).abs().max())
     check(mma_err == 0, "fe_mul_mma differs from the plain fe_mul_mxu")
     got_np = got.cpu().numpy()
-    for i in range(len(bound_a) - 4096):
-        want = (fe25519_f32.int_from_limbs(bound_a[i].astype(np.int64))
-                * fe25519_f32.int_from_limbs(bound_b[i].astype(np.int64)) % ref.P)
+    for i in range(n_edge):
+        want = (fe25519_f32.int_from_limbs(x_np[i].astype(np.int64))
+                * fe25519_f32.int_from_limbs(y_np[i].astype(np.int64)) % ref.P)
         check(fe25519_f32.int_from_limbs(got_np[i]) % ref.P == want, f"fe_mul_mma edge row {i}")
     layout_fe_err["fe_mul_mma"] = mma_err
     emit("layout-parts", rows=len(edge_rows), layout_edge_rows=len(testkit.layout_edge_values()),
-         comb_pairs=32 * 256, fe_mul_mma_rows=len(bound_a),
-         fe_mul_mma_edge_rows=len(bound_a) - 4096,
+         comb_pairs=32 * 256, fe_mul_mma_rows=len(x_np), fe_mul_mma_edge_rows=n_edge,
+         fe_mul_mma_high_byte_rows=int(fe25519_f32.mxu_high_rows(la, lb).sum()),
          max_abs_err={**layout_fe_err, "comb_select": comb_err})
 
     # -- 4. adversarial verify ----------------------------------------------
@@ -311,13 +323,22 @@ def main() -> int:
     rows = ed25519_torch.rows_to_device(ed25519_torch.prepare_batch(pubs, msgs, sigs), dev)
     ref_v = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
     check(any(ref_v) and not all(ref_v), "gauntlet lacks one outcome")
-    gauntlet_err = {}
+    # and on the part probes, rows whose R is made from s and k, so that a
+    # wrong verdict names the part of the equation ([s]B, [k](-A)) at fault
+    kinds, part_rows, part_want = testkit.part_probe_rows(SEED, n_each=8)
+    part_rows = ed25519_torch.rows_to_device(part_rows, dev)
+    gauntlet_err, part_err = {}, {}
     for (impl, base_mxu, fe_mxu), name in kernels.VERIFY_KERNELS.items():
         kernel_v = ed25519_torch.verify_rows(*rows, impl=impl, base_mxu=base_mxu,
                                              fe_mxu=fe_mxu).cpu().tolist()
         gauntlet_err[name] = sum(k != r for k, r in zip(kernel_v, ref_v))
         check(kernel_v == ref_v, f"adversarial verdicts differ from the reference ({name})")
-    emit("adversarial", rows=len(ref_v), accepted=sum(ref_v), differences=gauntlet_err)
+        part_v = ed25519_torch.verify_rows(*part_rows, impl=impl, base_mxu=base_mxu,
+                                           fe_mxu=fe_mxu).cpu().tolist()
+        part_err[name] = sorted({k for k, g, w in zip(kinds, part_v, part_want) if g != w})
+        check(not part_err[name], f"part probes {part_err[name]} wrong ({name})")
+    emit("adversarial", rows=len(ref_v), accepted=sum(ref_v), differences=gauntlet_err,
+         part_probe_rows=len(part_want), part_probes_wrong=part_err)
 
     # -- the main path: entry points only, counts reset before each call ----
     main_launches = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -479,7 +500,11 @@ def main() -> int:
             if name in kernels.VERIFY_KERNELS.values():
                 check(got.cpu().tolist() == mwant[:n], f"mixed verdicts at N = {n}")
                 check(any(mwant[:n]) and not all(mwant[:n]), "mixed batch lacks one outcome")
-            bound, bound_by = bound_ms(name, n, nbytes)
+            # fe_mul_mma's rows whose Toeplitz operand needs its high byte
+            # (133 x -132) cost a second set of mma
+            high_muls = (int(fe25519_f32.mxu_high_rows(mma_a[:n], mma_b[:n]).sum())
+                         if name == "fe_mul_mma" else 0)
+            bound, bound_by = bound_ms(name, n, nbytes, high_muls=high_muls)
             library_fn, library_ms = library_calls.get((name, n)), None
             if library_fn is not None:
                 check(library_equal[name](library_fn(), got),
@@ -908,7 +933,14 @@ def main() -> int:
                       if k != "lanes"},
                    "max_abs_err": errs[name]}
                   for name in replaces]
-    emit("sass", kernels=sass_summary(sass))
+    summary = sass_summary(sass)
+    # the kernels on the tensor-core multiply (element ff_t<1>, and the part
+    # kernel fe_mul_mma, which is fe_mul alone): its IMMA, the IMAD that
+    # would show products formed outside them, and the spills
+    emit("sass", kernels=summary,
+         tensor_core={name: {k: counts[k] for k in ("instructions", "IMAD", "IMMA", "LDL", "STL")}
+                      for name, counts in summary.items()
+                      if "ff_tILi1E" in name or "fe_mul_mma" in name})
     emit("seconds", build_s=build_s, total_s=sum(PHASE_S.values()), phases=dict(PHASE_S))
     print(card, flush=True)
     print(json.dumps({"kernels": table_line}), flush=True)

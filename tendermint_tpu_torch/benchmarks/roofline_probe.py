@@ -490,11 +490,12 @@ def run_census() -> list[dict]:
     for (impl, base_mxu, fe_mxu), name in kernels.VERIFY_KERNELS.items():
         muls, sqs = kernels.field_ops(name, 1)
         ops = kernels.operations(name, 1)
-        per_mul = kernels.LAYOUT_PRODUCTS[kernels.layout(name)][0]
+        mul_ops = (ops["int8_mma"] if name in kernels.MMA_KERNELS
+                   else kernels.LAYOUT_PRODUCTS[kernels.layout(name)][0] * muls)
         lines.append({
             "probe": "census", "impl": impl + ("+fe_mxu" if fe_mxu else "")
             + ("+base_mxu" if base_mxu else ""), "kernel": name,
-            "lane_ops_per_sig": ops, "lane_mul_per_sig": per_mul * muls,
+            "lane_ops_per_sig": ops, "lane_mul_per_sig": mul_ops,
             "lane_ops_total_per_sig": sum(ops.values()),
             "calls": {"fe_mul": muls, "fe_sq": sqs},
             "note": ("limb products of the field multiplies and squarings, as instructions "

@@ -15,11 +15,18 @@
 //   fe_mul_mma                   part check: the mma fe_mul alone, on raw
 //                                limbs [N][51] (any within its contract).
 //
-// What bounds it: forming the limb products.  Per signature about 2,400
-// multiplies, each 2,601 products on the IMAD pipe summed by 352 int8
-// mma per warp, and 1,300 FFMA squarings (1,326 products).  One thread
-// per signature, 32 to a warp, every lane through every multiply (rows
-// past N as dummies); points in local memory as in ed25519_verify_f32.cu.
+// What bounds it: per signature about 2,400 multiplies and 1,300
+// squarings.  A multiply forms its products inside int8 mma (fe_f32_mma.cuh:
+// 4 mma a row, 128 per warp, rows in a walk over the warp's shared
+// memory, then an int32 fold and the FFMA carry); a squaring is 1,326 FFMA
+// and the carry.  Priced at the data sheet's rates the squarings' FFMA
+// (0.505 ms at 10,000 rows) outweigh the mma (0.398 ms); on the card each
+// warp runs alone on its scheduler (157 blocks of two warps on 132 SMs at
+// 10,000 rows), so the latency of the walk and of the carry, and the
+// points' local memory (as in ed25519_verify_f32.cu), set the time, which
+// PERF.md section 6 gives against the bound.  One thread per signature,
+// 32 to a warp, every lane through every multiply (rows past N as
+// dummies).
 //
 //   g++ -x c++ -O1 -shared -fPIC -DTM_COUNT_FIELD_OPS ed25519_verify_f32_mma.cu
 
@@ -95,6 +102,11 @@ extern "C" void tm_host_ed25519_verify_f32_mma_comb(const uint8_t* pub, const ui
 extern "C" void tm_host_fe_mul_mma(const float* a, const float* b, float* out, int n) {
     for (int i = 0; i < n; ++i)
         fe_mul_mma_row(a + (size_t)i * TM_F_N, b + (size_t)i * TM_F_N, out + (size_t)i * TM_F_N);
+}
+
+// The same rows through the warp's walk, lane by lane (fe_f32_mma.cuh).
+extern "C" void tm_host_fe_mul_mma_warp(const float* a, const float* b, float* out, int n) {
+    host_fe_mul_mma_warp(a, b, out, n);
 }
 
 #ifdef TM_COUNT_FIELD_OPS

@@ -159,6 +159,15 @@ def fe_mul_mxu_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fe_mul_mxu(a, b)
 
 
+def mxu_high_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bool [N]: the rows of a ``fe_mul_mma`` call whose Toeplitz operand
+    (a, unless b's largest |limb| is the smaller) has a limb outside
+    [-128, 127], so that the kernel also runs the mma of its high byte."""
+    a_max, b_max = a.abs().amax(-1), b.abs().amax(-1)
+    t = torch.where((b_max < a_max)[..., None], b, a)
+    return ((t < -128) | (t > 127)).any(-1)
+
+
 def fe_sq(a: torch.Tensor) -> torch.Tensor:
     """a^2 for |a|_inf <= 63.  Its columns are the JAX squaring's
     (diagonal once, cross terms doubled), so its limbs are too."""

@@ -154,13 +154,12 @@ FIELD_OPS_PER_ROW = {
 # product is one IMAD.WIDE.U32; f32: one FFMA per product.
 LAYOUT_PRODUCTS = {"51": (4 * 25, 4 * 15, "imad"), "packed": (100, 55, "imad"),
                    "f32": (2601, 1326, "ffma")}
-# The tensor-core fe_mul (csrc/fe_f32_mma.cuh): its 2,601 limb products
-# (a_i * b_j + 128, exact below 2^24) are priced as one FFMA each, the
-# fastest pipe that forms them exactly (the kernel uses IMAD), and its
-# contraction is 88 (k32 step, n8 tile) pairs of two m16n8k32 int8 mma (hi
-# and lo bytes) per 32 rows: 2 x 88 x 32 x 8 multiply-adds, 2 operations
-# each, per row.
-MMA_MUL_INT8_OPS = 2 * 88 * 32 * 8 * 2
+# The tensor-core fe_mul (csrc/fe_f32_mma.cuh) forms its limb products
+# inside int8 mma: per row two n8 tiles x two k32 steps of m16n8k32, 16 x
+# 8 x 32 multiply-adds of 2 operations each, and as many again for a row
+# whose Toeplitz operand needs its high byte (none in the point formulas).
+# Its squarings stay on the FP32 pipe, priced as the f32 layout's.
+MMA_MUL_INT8_OPS = 2 * 2 * 16 * 8 * 32 * 2
 MMA_KERNELS = ("ed25519_verify_f32_mma", "ed25519_verify_f32_mma_comb", "fe_mul_mma",
                "ed25519_rlc_f32_mma")
 
@@ -258,18 +257,21 @@ def field_ops(kernel: str, n: int, rlc_inputs=None) -> tuple[int, int]:
     return rows * muls, rows * sqs
 
 
-def operations(kernel: str, n: int, rlc_inputs=None) -> dict[str, int]:
+def operations(kernel: str, n: int, rlc_inputs=None, high_muls: int = 0) -> dict[str, int]:
     """The limb products of one call of `kernel` on n rows, as
     instructions (operations, for "int8_mma") per pipe: the counts its
     bound is computed from, the larger time over the pipes.  An mma
-    kernel's multiplies form their products on the FP32 pipe, beside its
-    squarings, and sum them on the tensor cores, so its bound is never
-    above the FFMA kernel's for the same rows."""
+    kernel's multiplies are the int8 operations its mma issue, those of
+    the `high_muls` multiplies that need the Toeplitz operand's high byte
+    twice over (``fe25519_f32.mxu_high_rows`` counts them for raw
+    operands; the verify and RLC kernels' point formulas need none), and
+    its squarings FFMA; so its bound is never above the FFMA kernel's for
+    the same rows."""
     muls, sqs = field_ops(kernel, n, rlc_inputs)
     per_mul, per_sq, pipe = LAYOUT_PRODUCTS[layout(kernel)]
     if kernel not in MMA_KERNELS:
         return {pipe: per_mul * muls + per_sq * sqs}
-    return {"ffma": per_mul * muls + per_sq * sqs, "int8_mma": MMA_MUL_INT8_OPS * muls}
+    return {"ffma": per_sq * sqs, "int8_mma": MMA_MUL_INT8_OPS * (muls + high_muls)}
 
 
 # The card's peak rates the bounds are priced with (H100 SXM): device
@@ -329,6 +331,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtm_kernels-{h.hexdigest()[:16]}.so"
 
 
+def compile_command(nvcc: str, src: Path, obj: Path) -> list[str]:
+    """The nvcc command that compiles one source to an object for the
+    library: the same for every source, with ptxas at its default level
+    and its register and spill report (-v)."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(obj), str(src)]
+
+
 def build() -> Path:
     """Compile csrc/*.cu unless the library for these sources exists: one
     nvcc per source, all at once, then one link.  The compilers' register
@@ -346,9 +356,8 @@ def build() -> Path:
     compiles = []
     for src, obj, log in zip(_sources(), objs, src_logs):
         with open(log, "w") as f:
-            compiles.append(subprocess.Popen(
-                [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", str(obj), str(src)], stdout=f, stderr=subprocess.STDOUT))
+            compiles.append(subprocess.Popen(compile_command(nvcc, src, obj), stdout=f,
+                                             stderr=subprocess.STDOUT))
     seconds = [None] * len(compiles)
     while None in seconds:
         for i, proc in enumerate(compiles):

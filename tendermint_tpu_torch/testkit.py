@@ -188,6 +188,55 @@ def fe_mul_bound_limbs(seed: int, n_random: int) -> tuple[np.ndarray, np.ndarray
             np.ascontiguousarray(np.concatenate([b, rb]), dtype=np.float32))
 
 
+def fe_mul_byte_edge_limbs() -> tuple[np.ndarray, np.ndarray]:
+    """Raw f32-layout operands (float32 [*, 51] each) at the edges of the
+    tensor-core multiply's signed-byte split: every limb 127, -128 or 128
+    on one side against every limb 127, -128 or 128 on the other (nine
+    pairs, within the contract: 128 x 128 = 16,384), then each value in
+    alternating signs against each, so that a Toeplitz side holding a 128
+    needs its high byte and one of -128s alone does not."""
+    n = 51
+    alt = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    values = (127.0, -128.0, 128.0)
+    pairs = [(x, y) for x in values for y in values]
+    pairs += [(x * alt, y) for x in values for y in values]
+    a = np.stack([np.broadcast_to(np.float32(x), (n,)) for x, _ in pairs])
+    b = np.stack([np.broadcast_to(np.float32(y), (n,)) for _, y in pairs])
+    return (np.ascontiguousarray(a, dtype=np.float32), np.ascontiguousarray(b, dtype=np.float32))
+
+
+PART_PROBES = ("zero", "sB", "kA", "both")
+
+
+def part_probe_rows(seed: int, n_each: int):
+    """Verify rows (pub, r, s, k, valid: uint8 [N, 32] x 4, bool [N]) whose
+    R is made from the scalars, so that each kind leans on one part of the
+    equation [8]([s]B + [k](-A) - R) == O: "zero" (s = k = 0, R = O), "sB"
+    (k = 0, R = [s]B), "kA" (s = 0, R = [k](-A)), "both" (R = [s]B -
+    [k]A).  Each kind has `n_each` rows that must pass, then `n_each` of
+    "<kind>_bad" with R moved by B, which must fail.  Returns (kinds,
+    rows, verdicts wanted)."""
+    rng = np.random.default_rng(seed)
+    scalar = lambda: int.from_bytes(rng.bytes(32), "little") % ref.L
+    kinds, cols, want = [], ([], [], [], []), []
+    for bad in (False, True):
+        for kind in PART_PROBES:
+            for _ in range(n_each):
+                a_pt = ref.scalar_mult_base(scalar())
+                s = scalar() if kind in ("sB", "both") else 0
+                k = scalar() if kind in ("kA", "both") else 0
+                r_pt = ref.pt_add(ref.scalar_mult_base(s), ref.pt_neg(ref.scalar_mult(k, a_pt)))
+                if bad:
+                    r_pt = ref.pt_add(r_pt, ref.BASE)
+                kinds.append(kind + "_bad" * bad)
+                want.append(not bad)
+                for col, value in zip(cols, (ref.encode_point(a_pt), ref.encode_point(r_pt),
+                                             s.to_bytes(32, "little"), k.to_bytes(32, "little"))):
+                    col.append(np.frombuffer(value, dtype=np.uint8))
+    rows = tuple(np.stack(col) for col in cols) + (np.ones(len(want), dtype=bool),)
+    return kinds, rows, want
+
+
 # ---------------------------------------------------------------------------
 # RLC inputs
 # ---------------------------------------------------------------------------

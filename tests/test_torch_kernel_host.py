@@ -1,8 +1,9 @@
 """The CUDA sources' device functions, built for the CPU by the host C++
 compiler (every ``csrc/*.cu``, with the headers it includes, compiles as
 plain C++; the comb's gather is the same code there, the tensor-core
-fe_mul a plain loop over the same split products, K order and incidence
-weights, and the RLC kernels' warps serial loops over the same tasks,
+fe_mul a plain loop over the same staged signed-byte planes (and, in
+``tm_host_fe_mul_mma_warp``, the warp's walk with the same fragment
+words), and the RLC kernels' warps serial loops over the same tasks,
 lanes and trees), against the plain PyTorch versions and the pure ZIP-215
 reference; and the field multiplies and squarings that the kernels'
 bound is computed from (``ops/kernels.FIELD_OPS_PER_ROW``, and
@@ -264,18 +265,28 @@ def test_field_op_counts_per_row_match_the_kernel_source(host_lib, packed_lib, f
                                       ("ed25519_verify_f32_mma_comb", "ed25519_verify_f32_comb"),
                                       ("ed25519_rlc_f32_mma", "ed25519_rlc_f32")])
 def test_a_tensor_core_kernels_bound_is_never_above_its_ffma_kernels(mma, ffma):
-    """An mma kernel's bound is priced on the FFMA kernel's FP32 count (the
-    same products) plus the tensor cores' int8 operations, so where the
-    int8 work is the smaller the two bounds of one function are equal (the
-    RLC kernels' on random digits, every row prevalid)."""
+    """An mma kernel's bound prices its multiplies as the int8 operations
+    its mma issue and only its squarings as FFMA (the FFMA kernel's
+    squarings, the same count), so on the card's rates it is never above
+    the FFMA kernel's bound for the same rows (the RLC kernels' on random
+    digits, every row prevalid), and a multiply's high-byte step doubles
+    its int8 operations."""
     rng = np.random.default_rng(24)
+    rates = kernels.pipe_rates(132, 1980.0)
     for n in (128, 10_000):
         digits = (rng.integers(0, 256, size=(n, 32), dtype=np.uint8),
                   rng.integers(0, 256, size=(n, 16), dtype=np.uint8), np.ones(n, dtype=bool))
         ops = kernels.operations(mma, n, digits)
+        muls, sqs = kernels.field_ops(mma, n, digits)
         assert set(ops) == {"ffma", "int8_mma"}
-        assert ops["ffma"] == kernels.operations(ffma, n, digits)["ffma"]
-        assert ops["int8_mma"] == kernels.MMA_MUL_INT8_OPS * kernels.field_ops(mma, n, digits)[0]
+        assert ops["ffma"] == kernels.LAYOUT_PRODUCTS["f32"][1] * sqs
+        assert ops["int8_mma"] == kernels.MMA_MUL_INT8_OPS * muls == 32_768 * muls
+        assert kernels.field_ops(ffma, n, digits) == (muls, sqs)
+        bound = max(count / rates[pipe] for pipe, count in ops.items())
+        (ffma_ops,) = kernels.operations(ffma, n, digits).values()
+        assert bound < ffma_ops / rates["ffma"]
+        high = kernels.operations(mma, n, digits, high_muls=muls)
+        assert high == {"ffma": ops["ffma"], "int8_mma": 2 * ops["int8_mma"]}
 
 
 @pytest.fixture(scope="module")
@@ -420,7 +431,7 @@ def test_comb_selection_matches_the_plain_one_hot_product(host_lib):
 # ---------------------------------------------------------------------------
 
 def test_fe_mul_mma_matches_the_plain_matrix_unit_product(f32_mma_lib):
-    """The host build's split products, K order and incidence weights
+    """The host build's Toeplitz columns over the staged byte planes
     against ``fe_mul_mxu``, limb for limb, on operands at the contract's
     bounds (limbs up to +-153 x +-102) and seeded ones within it."""
     a, b = testkit.fe_mul_bound_limbs(seed=21, n_random=200)
@@ -431,6 +442,81 @@ def test_fe_mul_mma_matches_the_plain_matrix_unit_product(f32_mma_lib):
                                                    torch.from_numpy(b)).numpy())
 
 
+def _mma_stats(lib) -> tuple[int, float, float]:
+    """(multiplies whose Toeplitz operand needed its high byte, that
+    operand's largest |limb|, the other's) a host build of the tensor-core
+    fe_mul saw since the last call; resets them."""
+    stats = np.zeros(3)
+    lib.tm_host_fe_mul_mma_stats(_p(stats))
+    return int(stats[0]), float(stats[1]), float(stats[2])
+
+
+@pytest.mark.parametrize("entry", ["tm_host_fe_mul_mma", "tm_host_fe_mul_mma_warp"])
+def test_fe_mul_mma_in_both_orders_and_at_the_byte_edges(f32_mma_lib, entry):
+    """Every row of ``fe_mul_bound_limbs`` in both argument orders, and
+    limbs of exactly 127, -128 and 128 on each side: ``fe_mul_mxu``'s
+    limbs, from the plain loop every kernel's host build runs and from the
+    warp's walk, lane by lane (the fragment words and the mma of the PTX
+    fragment layout).  The rows whose Toeplitz operand needs its high byte
+    are those ``mxu_high_rows`` names: 133 x -132 in both orders, and a
+    Toeplitz side (the smaller, a on a tie) holding a 128, not one of
+    -128s."""
+    a, b = testkit.fe_mul_bound_limbs(seed=21, n_random=60)
+    ea, eb = testkit.fe_mul_byte_edge_limbs()
+    x = np.ascontiguousarray(np.concatenate([a, b, ea, eb]))
+    y = np.ascontiguousarray(np.concatenate([b, a, eb, ea]))
+    want = fe25519_f32.fe_mul_mxu(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    _mma_stats(f32_mma_lib)
+    got = np.zeros_like(x)
+    getattr(f32_mma_lib, entry)(_p(x), _p(y), _p(got), ctypes.c_int(len(x)))
+    assert np.array_equal(got, want)
+    high = fe25519_f32.mxu_high_rows(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    n = len(a)
+    assert high[[4, 5, n + 4, n + 5]].all()  # 133 x -132, -133 x 132, and reversed
+    edge_high = high[2 * n:].reshape(2, -1)
+    assert edge_high[0].tolist() == ([False] * 7 + [True] * 2 + [False] * 4 + [True] * 2
+                                     + [False] + [True] * 2)
+    if entry == "tm_host_fe_mul_mma":
+        assert _mma_stats(f32_mma_lib) == (int(high.sum()), 132.0, 17641.0)
+
+
+def test_the_point_formulas_never_need_the_high_byte_step(f32_mma_lib):
+    """Through ed25519_verify_f32_mma and its comb, on the golden batch,
+    the gauntlet and a mixed batch of signed votes, every multiply's
+    Toeplitz operand stays within [-128, 127], at most 127 in magnitude
+    (the worst product, 153 x 102, puts 102 there): no high-byte step."""
+    rows, want = ed25519_torch._golden_batch()
+    cases = testkit.adversarial_cases(seed=0)
+    keys = testkit.validator_keys(seed=26, n=16)
+    msgs = [b"high byte vote %d" % i for i in range(16)]
+    mixed = testkit.mixed_batch([k.pub_key().bytes_() for k in keys], msgs,
+                                [k.sign(m) for k, m in zip(keys, msgs)], seed=27)
+    batches = [(rows, want)]
+    for pubs, msgs, sigs in (tuple([c[i] for c in cases] for i in range(3)), mixed[:3]):
+        batches.append((ed25519_torch.prepare_batch(pubs, msgs, sigs),
+                        [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]))
+    _mma_stats(f32_mma_lib)
+    for base_mxu in (False, True):
+        for prepared, verdicts in batches:
+            assert _verify(f32_mma_lib, prepared, "f32", base_mxu, True).tolist() == verdicts
+        high, t_max, x_max = _mma_stats(f32_mma_lib)
+        assert high == 0 and t_max <= 127, (base_mxu, high, t_max, x_max)
+
+
+@pytest.mark.parametrize("base_mxu", [False, True])
+def test_part_probe_rows_through_the_tensor_core_host_build(f32_mma_lib, base_mxu):
+    """``testkit.part_probe_rows`` (R made from s and k, so each kind leans
+    on one part of the equation; ``benchmarks/ptxas_levels`` runs them on
+    the card at every ptxas level): the int64 plain version and the host
+    build of each tensor-core verify kernel give every kind its verdict."""
+    kinds, rows, want = testkit.part_probe_rows(seed=5, n_each=1)
+    assert sorted(set(kinds)) == sorted(testkit.PART_PROBES + tuple(
+        k + "_bad" for k in testkit.PART_PROBES))
+    plain = ed25519_torch.verify_rows(*map(torch.from_numpy, rows), impl="int64")
+    assert plain.tolist() == want
+    assert _verify(f32_mma_lib, rows, "f32", base_mxu, True).tolist() == want
+
+
 @pytest.mark.parametrize("impl,fe_mxu", sorted(kernels.RLC_KERNELS))
 def test_rlc_kernels_of_every_layout_sum_to_the_plain_lanes(rlc_lib, rlc_batch, impl, fe_mxu):
     """Each layout's RLC kernel on 65 rows of the mixed and the honest
@@ -438,6 +524,8 @@ def test_rlc_kernels_of_every_layout_sum_to_the_plain_lanes(rlc_lib, rlc_batch, 
     JAX program in test_torch_rlc.py), with the same prevalid and the same
     decision, in the layout's own finish."""
     kernel = kernels.RLC_KERNELS[(impl, fe_mxu)]
+    if fe_mxu:
+        _mma_stats(rlc_lib)
     for prepared, honest in zip(rlc_batch, (False, True)):
         rows, c_row = testkit.rlc_rows(tuple(a[:65] for a in prepared), seed=22)
         lanes, prevalid = _rlc(rlc_lib, rows, kernel)
@@ -447,6 +535,9 @@ def test_rlc_kernels_of_every_layout_sum_to_the_plain_lanes(rlc_lib, rlc_batch, 
         as_pt = ed25519_torch.lanes_to_pt(torch.from_numpy(lanes.astype(np.int64)
                                                            if impl == "int64" else lanes), impl)
         assert ed25519_torch.finalize_rlc(as_pt, c_row, impl) == honest
+    if fe_mxu:  # the tensor-core multiply's Toeplitz operand fits a signed byte
+        high, t_max, _ = _mma_stats(rlc_lib)
+        assert high == 0 and t_max <= 127
 
 
 @pytest.mark.parametrize("impl", sorted(kernels.FOLD_KERNELS))

@@ -186,6 +186,27 @@ def test_build_runs_one_compiler_per_source_and_logs_its_seconds(tmp_path, monke
     assert kernels.build() == out  # built once per set of sources
 
 
+def test_build_compiles_every_source_with_the_same_flags(tmp_path, monkeypatch):
+    """Every source of the library is compiled by one command,
+    ``compile_command``, with ptxas at its default level: no source gets
+    flags of its own (``benchmarks/ptxas_levels`` builds the tensor-core
+    source at each level and holds every build to the reference)."""
+    nvcc = tmp_path / "nvcc"
+    record = tmp_path / "args"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> {record}\n'
+                    'while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
+    kernels.build()
+    compiles = [line.split() for line in record.read_text().splitlines() if " -c " in line]
+    assert sorted(args[-1] for args in compiles) == [str(p) for p in kernels._sources()]
+    for args in compiles:
+        obj = args[args.index("-o") + 1]
+        assert [str(nvcc), *args] == kernels.compile_command(str(nvcc), args[-1], obj)
+        assert not any(a.startswith("-O") and a != "-O3" for a in args), args
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     """Without a card the smoke script exits non-zero and prints no
     result line."""
